@@ -17,6 +17,7 @@ from .core.domain import Domain, TopographyField
 from .core.fields import AtmosState, OceanState
 from .core.floes import FloeState
 from .core.grid import RegRectilinearGrid
+from .device import resolve_device
 
 
 def _tensor(x, device, dtype):
@@ -32,9 +33,10 @@ def _convert(cls, obj, device, dtype):
     return cls(*(_tensor(getattr(obj, f), device, dtype) for f in cls._fields))
 
 
-def from_jax_state(floes, ocean, atmos, domain, grid, device, dtype):
+def from_jax_state(floes, ocean, atmos, domain, grid, device=None, *, dtype):
     """(floes, ocean, atmos, domain, grid) of the reference -> the port's,
-    on ``device`` with floating fields in ``dtype``."""
+    on ``device`` (``None``: the card) with floating fields in ``dtype``."""
+    device = resolve_device(device)
     topo = _convert(TopographyField, domain.topography, device, dtype)
     return (
         _convert(FloeState, floes, device, dtype),

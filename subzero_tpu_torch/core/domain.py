@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve_device
 from .grid import RegRectilinearGrid
 
 
@@ -48,7 +49,8 @@ class TopographyField(NamedTuple):
         return self.verts.shape[0]
 
 
-def empty_topography(V: int = 32, *, dtype, device) -> TopographyField:
+def empty_topography(V: int = 32, *, dtype, device=None) -> TopographyField:
+    device = resolve_device(device)
     return TopographyField(
         verts=torch.zeros((0, V, 2), dtype=dtype, device=device),
         nverts=torch.zeros((0,), dtype=torch.int32, device=device),
@@ -105,10 +107,11 @@ def make_domain(
     topo_V: int = 32,
     *,
     dtype,
-    device,
+    device=None,
 ) -> Domain:
     """Build a Domain; validates periodic pairing like the reference
-    (domains.jl:19-31)."""
+    (domains.jl:19-31).  ``device=None`` is the card."""
+    device = resolve_device(device)
     for a, b, name in ((north, south, "north/south"), (east, west, "east/west")):
         if (a == BoundaryKind.PERIODIC) != (b == BoundaryKind.PERIODIC):
             raise ValueError(

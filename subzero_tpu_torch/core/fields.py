@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .grid import RegRectilinearGrid
 
 
@@ -43,8 +44,10 @@ def _field(val, shape, dtype, device):
 
 
 def make_ocean(grid: RegRectilinearGrid, u=0.0, v=0.0, temp=0.0, *,
-               dtype, device) -> OceanState:
-    """Ocean constructor (oceans.jl:207-222). Scalars broadcast to fields."""
+               dtype, device=None) -> OceanState:
+    """Ocean constructor (oceans.jl:207-222). Scalars broadcast to fields.
+    ``device=None`` is the card."""
+    device = resolve_device(device)
     shape = (grid.Nx + 1, grid.Ny + 1)
     t = _field(temp, shape, dtype, device)
     if bool(torch.any((t < -3) | (t > 0))):
@@ -69,8 +72,9 @@ def make_ocean(grid: RegRectilinearGrid, u=0.0, v=0.0, temp=0.0, *,
 
 
 def make_atmos(grid: RegRectilinearGrid, u=0.0, v=0.0, temp=0.0, *,
-               dtype, device) -> AtmosState:
-    """Atmos constructor (atmos.jl:108-114)."""
+               dtype, device=None) -> AtmosState:
+    """Atmos constructor (atmos.jl:108-114).  ``device=None`` is the card."""
+    device = resolve_device(device)
     shape = (grid.Nx + 1, grid.Ny + 1)
     return AtmosState(
         u=_field(u, shape, dtype, device),

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..settings import FloeSettings, MonteCarloPointsGenerator, SubGridPointsGenerator
 
 
@@ -90,7 +91,10 @@ class FloeState(NamedTuple):
         ))
 
 
-def empty_floes(N: int, V: int = 32, P: int = 1024, *, dtype, device) -> FloeState:
+def empty_floes(N: int, V: int = 32, P: int = 1024, *, dtype,
+                device=None) -> FloeState:
+    device = resolve_device(device)
+
     def z(*s):
         return torch.zeros(s, dtype=dtype, device=device)
 
@@ -272,15 +276,17 @@ def build_floes(
     xi=0.0,
     *,
     dtype,
-    device,
+    device=None,
 ) -> FloeState:
-    """Create a FloeState pool from a list of polygon coordinate arrays.
+    """Create a FloeState pool from a list of polygon coordinate arrays
+    (``device=None``: on the card).
 
     Mirrors the per-floe initialization of ``Floe{FT}(poly, hmean, dh)``
     (floe.jl:144-196): heights drawn as ``hmean ± U(0,1)*dh`` clamped to the
     settings range, mass/moment from polygon integrals, and sub-floe points
     from the configured generator.
     """
+    device = resolve_device(device)
     if rng is None:
         rng = np.random.default_rng(0)
     rows = []

@@ -4,23 +4,47 @@
 // (launched by two_cross_pallas_raw): for every broad-phase candidate pair it
 // computes the proper crossing count, the containment area and, for pairs
 // with one two-crossing overlap region, that region's area, centroid, chord
-// and P-chain normal.  The arithmetic lives in two_cross.cuh.
+// and P-chain normal.  The per-term arithmetic lives in two_cross.cuh.
 //
-// What bounds it on the H100: per pair it reads about 256 B (two rings of up
-// to 16 live vertices) and runs pn x qn (~16 x 16 at most, ~8 x 8 typical)
-// crossing tests with two divisions each, plus data-dependent selects.  That
-// is compute- and latency-bound, not bandwidth-bound, and at N = 500 floes
-// (~4 250 pairs) there are too few pairs to fill 132 SMs.  The design is one
-// thread per pair, with 32-thread blocks so that even a small batch spreads
-// over as many SMs as it can; rings are read in place from the [B, V, 2]
-// tensors (L1 serves the repeated Q-ring reads) and each loop runs only to
-// the pair's own vertex count, so any V <= 32 is taken without a
-// host-synchronised "every ring fits in 16" check.
+// What bounds it on the H100.  A row reads two indices, a shift, a
+// perturbation, a flag and two rings of at most 256 B (f32, V = 32) and
+// writes 45 B; it runs pn x qn crossing tests of about 30 operations, two of
+// them IEEE divisions (~8 x 8 edges on a typical pair).  A step's whole batch
+// (4 326 rows at 500 floes, 17 000 at 2 000) is a few MB and a few MFLOP:
+// both bounds are a microsecond or two, at or under the cost of a launch.
+// So the kernel is bound by neither bytes nor operations but by latency: how
+// many warps an SM has to switch between, and how long one pair's dependent
+// chain of loads and divisions is.
 //
-// Left to later work: fusing the ring gather that builds pv/qv
-// (physics/collisions.py, the q_pack gather and row broadcast) into the
-// kernel, and a warp-per-pair layout that spreads the crossing tests of one
-// pair over the lanes of a warp.
+// What the design does about it:
+//   * A warp per pair (4 pairs to a 128-thread block).  A batch of 4 326
+//     rows is 4 326 warps, ~33 on each of the 132 SMs, where a thread per
+//     pair gave each SM one warp and nothing to hide a division behind.
+//   * The ring gather happens here.  The kernel takes the floe pool, the Q
+//     pool (floes, walls, topography) and the pair list; lane l loads vertex
+//     l of both rings with one 8- or 16-byte load, so a 256-byte ring is one
+//     coalesced warp-wide load, served by L2 (the pools are ~130 KB and every
+//     ring is read by many pairs).  The [PC, V, 2] ring batches that the
+//     step used to materialise, and the kernel to read back, do not exist.
+//   * Lane j owns Q edge j.  The loop over P edges i broadcasts edge i by
+//     shuffle and all lanes test (i, j) at once: a 32 x 32 sweep is 32 steps,
+//     not 1 024.  Rings stay in registers; no shared memory is used.
+//   * Crossings are rare (0 or 2 on most pairs): a ballot finds a step's
+//     hits and they are folded in (i, j) order, i outer, j inner.  Ring sums
+//     (shoelace, chain integrals) are folded in ascending vertex order by a
+//     shuffle loop; point-in-polygon parity is a ballot and a popcount.  No
+//     float atomics; two runs give the same bits, and they are the bits of
+//     the serial CPU shim (two_cross_host.cpp).
+//   * A row that is not a candidate pair (padding of the fixed-shape list)
+//     writes zeros and returns before it loads a ring.
+//   * One packed output: a row's 10 floats are one 40-byte store by lanes
+//     0-9; cnt and ok go to two small arrays of the same allocation.
+//
+// Tensor cores and TMA have no part here: the work is branchy scalar
+// geometry on at most 32 x 32 edge pairs with IEEE division, there is no
+// matrix product in it, and a tile is one 256-byte ring.  What the card
+// offers this kernel is 132 SMs kept full of warps, coalesced loads,
+// shuffles and ballots, and an L2 that holds the whole pool.
 //
 // Build (plain C interface, loaded with ctypes; see geometry/two_cross.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -31,69 +55,234 @@
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 32 * kWarpsPerBlock;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<double> { using type = double2; };
+
+// Sums of the lanes' terms a and b over lanes 0 .. n-1 in ascending lane
+// order (n is uniform over the warp); every lane gets both sums.  The two
+// chains of adds are independent, so they overlap.
+template <typename T>
+__device__ __forceinline__ void ordered_sums(T a, T b, int n, T& sa, T& sb) {
+  sa = T(0);
+  sb = T(0);
+  for (int k = 0; k < n; ++k) {
+    sa += __shfl_sync(kFull, a, k);
+    sb += __shfl_sync(kFull, b, k);
+  }
+}
+
+// A ring spread over the lanes: lane l holds edge l = (ax, ay) -> (bx, by),
+// live where l < n.
+template <typename T>
+struct LaneRing {
+  T ax, ay, bx, by;
+  int n;
+  bool live;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-two_cross_kernel(const T* __restrict__ pv, const int* __restrict__ pn,
-                 const T* __restrict__ qv, const int* __restrict__ qn,
-                 const T* __restrict__ pert, int B, int V, int W, T sliver,
-                 int* __restrict__ cnt, unsigned char* __restrict__ ok,
-                 T* __restrict__ contain, T* __restrict__ area,
-                 T* __restrict__ centroid, T* __restrict__ chord_a,
-                 T* __restrict__ chord_b, T* __restrict__ p_norm) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= B) return;
-  // counts beyond the ring width behave as the full ring (the closing edge
-  // wraps at V - 1), negative counts as an empty ring
-  const int np = min(max(pn[k], 0), V);
-  const int nq = min(max(qn[k], 0), W);
-  const sz::TwoCrossOut<T> o = sz::two_cross_pair<T>(
-      pv + static_cast<long long>(k) * V * 2, np,
-      qv + static_cast<long long>(k) * W * 2, nq, pert[k], sliver);
-  sz::store(o, k, cnt, ok, contain, area, centroid, chord_a, chord_b, p_norm);
+__device__ __forceinline__ LaneRing<T> close_ring(T x, T y, int n, int lane) {
+  LaneRing<T> r;
+  r.ax = x;
+  r.ay = y;
+  r.n = n;
+  r.live = lane < n;
+  const int nxt = sz::next_vertex(lane, n) & 31;
+  r.bx = __shfl_sync(kFull, x, nxt);
+  r.by = __shfl_sync(kFull, y, nxt);
+  return r;
 }
 
 template <typename T>
-int launch(const T* pv, const int* pn, const T* qv, const int* qn,
-           const T* pert, int B, int V, int W, T sliver, int* cnt,
-           unsigned char* ok, T* contain, T* area, T* centroid, T* chord_a,
-           T* chord_b, T* p_norm, void* stream) {
-  if (B > 0) {
-    const int blocks = (B + kThreads - 1) / kThreads;
+__device__ __forceinline__ bool point_in(T px, T py, const LaneRing<T>& r) {
+  const bool hit = r.live && sz::pip_hit(px, py, r.ax, r.ay, r.bx, r.by);
+  return (__popc(__ballot_sync(kFull, hit)) & 1) == 1;
+}
+
+// Chain integrals along ring r from crossing xin (edge e_in, parameter t_in)
+// to crossing xout (edge e_out); all arguments but the ring are uniform.
+template <typename T>
+__device__ __forceinline__ sz::Moments<T> chain(
+    const LaneRing<T>& r, int lane, int e_in, T t_in, T xin_x, T xin_y,
+    int e_out, T t_out, T xout_x, T xout_y) {
+  const sz::ChainPlan p = sz::chain_plan(r.n, e_in, t_in, e_out, t_out);
+  if (p.same) return sz::chain_same(xin_x, xin_y, xout_x, xout_y);
+  const T bin_x = __shfl_sync(kFull, r.ax, p.b_in & 31);
+  const T bin_y = __shfl_sync(kFull, r.ay, p.b_in & 31);
+  const T aout_x = __shfl_sync(kFull, r.ax, e_out & 31);
+  const T aout_y = __shfl_sync(kFull, r.ay, e_out & 31);
+  sz::Moments<T> term{T(0), T(0), T(0)};
+  if (r.live && sz::chain_runs(p, lane))
+    term = sz::chain_term(r.ax, r.ay, r.bx, r.by);
+  sz::Moments<T> run{T(0), T(0), T(0)};
+  for (int k = 0; k < r.n; ++k) {
+    run.s += __shfl_sync(kFull, term.s, k);
+    run.mx += __shfl_sync(kFull, term.mx, k);
+    run.my += __shfl_sync(kFull, term.my, k);
+  }
+  return sz::chain_close(xin_x, xin_y, bin_x, bin_y, aout_x, aout_y, xout_x,
+                         xout_y, run);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+two_cross_kernel(const T* __restrict__ pverts, const int* __restrict__ pnv,
+                 int N, int V, const T* __restrict__ qverts,
+                 const int* __restrict__ qnv, int NQ, int W,
+                 const long long* __restrict__ qi,
+                 const long long* __restrict__ qj,
+                 const T* __restrict__ shift, const T* __restrict__ perturb,
+                 const unsigned char* __restrict__ valid, int PC, T sliver,
+                 T* __restrict__ out, int* __restrict__ cnt,
+                 unsigned char* __restrict__ ok) {
+  using V2 = typename Vec2<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= PC) return;  // the whole warp leaves together
+
+  sz::TwoCrossOut<T> o;
+  // the row's own entries, all in flight at once
+  const long long i = qi[row];
+  const long long j = qj[row];
+  const bool is_pair = valid[row] != 0;
+  const T pert = perturb[row];
+  const T shx = shift[2 * row], shy = shift[2 * row + 1];
+  if (!sz::row_live(is_pair, i, j, N, NQ)) {  // uniform over the warp
+    o = sz::invalid_row<T>();
+  } else {
+    const int np = sz::clamp_count(pnv[i], V);
+    const int nq = sz::clamp_count(qnv[j], W);
+    const T ox = sz::perturb_x(pert), oy = pert;
+
+    // lane l loads vertex l of both rings; slots past the width are zeros
+    V2 pvtx = {T(0), T(0)}, qvtx = {T(0), T(0)};
+    if (lane < V)
+      pvtx = reinterpret_cast<const V2*>(pverts)[i * V + lane];
+    if (lane < W)
+      qvtx = reinterpret_cast<const V2*>(qverts)[j * W + lane];
+    const LaneRing<T> P = close_ring<T>(pvtx.x, pvtx.y, np, lane);
+    const LaneRing<T> Q = close_ring<T>(sz::q_coord(qvtx.x, shx, ox),
+                                        sz::q_coord(qvtx.y, shy, oy), nq,
+                                        lane);
+    const T rx = P.bx - P.ax, ry = P.by - P.ay;  // P edge of this lane
+    const T sx = Q.bx - Q.ax, sy = Q.by - Q.ay;  // Q edge of this lane
+
+    // ---- crossing sweep: step e tests P edge e against every Q edge -------
+    // (testing several P edges a step, to overlap their division chains,
+    // was measured and bought nothing: it only cost registers)
+    sz::CrossSums<T> c;  // the same in every lane
+    for (int e = 0; e < np; ++e) {
+      const T pax = __shfl_sync(kFull, P.ax, e);
+      const T pay = __shfl_sync(kFull, P.ay, e);
+      const T erx = __shfl_sync(kFull, rx, e);
+      const T ery = __shfl_sync(kFull, ry, e);
+      const sz::Crossing<T> x =
+          sz::edge_crossing(pax, pay, erx, ery, Q.ax, Q.ay, sx, sy);
+      unsigned hits = __ballot_sync(kFull, Q.live && x.hit);
+      while (hits) {  // rare; ascending j
+        const int f = __ffs(hits) - 1;
+        hits &= hits - 1;
+        c.add(e, f, __shfl_sync(kFull, x.t, f), __shfl_sync(kFull, x.u, f),
+              __shfl_sync(kFull, x.denom, f), pax, pay, erx, ery);
+      }
+    }
+
+    // ---- ring areas -------------------------------------------------------
+    // lanes past a ring's own count hold exact zeros, so both sums may run
+    // to the longer ring: x + 0 == x
+    T shoeP, shoeQ;
+    ordered_sums(P.live ? sz::shoelace_term(P.ax, P.ay, P.bx, P.by) : T(0),
+                 Q.live ? sz::shoelace_term(Q.ax, Q.ay, Q.bx, Q.by) : T(0),
+                 np > nq ? np : nq, shoeP, shoeQ);
+    const T areaP = sz::ring_area(shoeP);
+    const T areaQ = sz::ring_area(shoeQ);
+
+    // ---- one region: P chain enter -> exit, Q chain exit -> enter ---------
+    sz::Moments<T> chP{T(0), T(0), T(0)}, chQ{T(0), T(0), T(0)};
+    if (c.two_cross()) {
+      chP = chain(P, lane, c.e_en, c.t_en, c.xen_x, c.xen_y, c.e_ex, c.t_ex,
+                  c.xex_x, c.xex_y);
+      chQ = chain(Q, lane, c.f_ex, c.u_ex, c.xex_x, c.xex_y, c.f_en, c.u_en,
+                  c.xen_x, c.xen_y);
+    }
+
+    // ---- containment ------------------------------------------------------
+    bool p_in_q = false, q_in_p = false;
+    if (c.cnt == 0) {
+      p_in_q = point_in(__shfl_sync(kFull, P.ax, 0),
+                        __shfl_sync(kFull, P.ay, 0), Q);
+      q_in_p = point_in(__shfl_sync(kFull, Q.ax, 0),
+                        __shfl_sync(kFull, Q.ay, 0), P);
+    }
+    o = sz::finish(c, areaP, areaQ, chP, chQ, p_in_q, q_in_p, sliver);
+  }
+
+  // every lane holds the row's result; lanes 0-9 store its floats
+  T mine = T(0);
+#pragma unroll
+  for (int k = 0; k < sz::kOutFloats; ++k)
+    if (lane == k) mine = o.f[k];
+  if (lane < sz::kOutFloats)
+    out[static_cast<long long>(row) * sz::kOutFloats + lane] = mine;
+  if (lane == 0) {
+    cnt[row] = o.cnt;
+    ok[row] = o.ok ? 1 : 0;
+  }
+}
+
+template <typename T>
+int launch(const T* pverts, const int* pnv, int N, int V, const T* qverts,
+           const int* qnv, int NQ, int W, const long long* qi,
+           const long long* qj, const T* shift, const T* perturb,
+           const unsigned char* valid, int PC, T sliver, T* out, int* cnt,
+           unsigned char* ok, void* stream) {
+  if (PC > 0) {
+    const int blocks = (PC + kWarpsPerBlock - 1) / kWarpsPerBlock;
     two_cross_kernel<T><<<blocks, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        pv, pn, qv, qn, pert, B, V, W, sliver, cnt, ok, contain, area,
-        centroid, chord_a, chord_b, p_norm);
+        pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift, perturb, valid,
+        PC, sliver, out, cnt, ok);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-extern "C" int sz_two_cross_f32(const float* pv, const int* pn,
-                                const float* qv, const int* qn,
-                                const float* pert, int B, int V, int W,
-                                float sliver, int* cnt, unsigned char* ok,
-                                float* contain, float* area, float* centroid,
-                                float* chord_a, float* chord_b, float* p_norm,
-                                void* stream) {
-  return launch<float>(pv, pn, qv, qn, pert, B, V, W, sliver, cnt, ok,
-                       contain, area, centroid, chord_a, chord_b, p_norm,
-                       stream);
+extern "C" int sz_two_cross_f32(const float* pverts, const int* pnv, int N,
+                                int V, const float* qverts, const int* qnv,
+                                int NQ, int W, const long long* qi,
+                                const long long* qj, const float* shift,
+                                const float* perturb,
+                                const unsigned char* valid, int PC,
+                                float sliver, float* out, int* cnt,
+                                unsigned char* ok, void* stream) {
+  return launch<float>(pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift,
+                       perturb, valid, PC, sliver, out, cnt, ok, stream);
 }
 
-extern "C" int sz_two_cross_f64(const double* pv, const int* pn,
-                                const double* qv, const int* qn,
-                                const double* pert, int B, int V, int W,
-                                double sliver, int* cnt, unsigned char* ok,
-                                double* contain, double* area,
-                                double* centroid, double* chord_a,
-                                double* chord_b, double* p_norm,
-                                void* stream) {
-  return launch<double>(pv, pn, qv, qn, pert, B, V, W, sliver, cnt, ok,
-                        contain, area, centroid, chord_a, chord_b, p_norm,
-                        stream);
+extern "C" int sz_two_cross_f64(const double* pverts, const int* pnv, int N,
+                                int V, const double* qverts, const int* qnv,
+                                int NQ, int W, const long long* qi,
+                                const long long* qj, const double* shift,
+                                const double* perturb,
+                                const unsigned char* valid, int PC,
+                                double sliver, double* out, int* cnt,
+                                unsigned char* ok, void* stream) {
+  return launch<double>(pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift,
+                        perturb, valid, PC, sliver, out, cnt, ok, stream);
+}
+
+// An empty kernel on the same stream: the floor of any launch's time.
+extern "C" int sz_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* sz_cuda_error_string(int code) {

@@ -7,13 +7,15 @@ area, centroid, crossing count, chord points and the inward-normal sum of
 the region boundary lying on the subject polygon P.
 
   * ``two_cross_pass``: the fused narrow phase for the common case of
-    exactly two proper crossings (one region).  This is the plain PyTorch
-    version of the CUDA kernel in ``csrc/two_cross.cu``.
+    exactly two proper crossings (one region), on a materialised ring batch.
+  * ``two_cross_pairs``: the same over ring pools and a candidate pair list
+    (gather, ``two_cross_pass``, invalid rows zeroed).  This is the plain
+    PyTorch version of the CUDA kernel in ``csrc/two_cross.cu``.
   * ``intersect_regions``: the general multi-region clip (a data-parallel
     Weiler-Atherton: all crossings, ring-order next pointers, cycle labels
     by pointer doubling, per-region line integrals).
   * ``two_cross_dispatch``: CUDA tensors go to the kernel, CPU tensors to
-    ``two_cross_pass``.
+    ``two_cross_pairs``.
 
 Degeneracies (vertex exactly on an edge, collinear overlapping edges) are
 broken by a deterministic perturbation of Q along (0.618..., 1).
@@ -545,20 +547,54 @@ def two_cross_pass(pv, pn, qv, qn, perturb) -> TwoCrossResult:
     )
 
 
-def two_cross_dispatch(pv, pn, qv, qn, perturb) -> TwoCrossResult:
-    """The narrow phase on the tensors' device: a CUDA tensor goes to the
-    hand-written kernel (geometry/two_cross.py), which takes any ring width
-    up to 32 and raises on what it cannot take; a CPU tensor goes to the
-    plain ``two_cross_pass``, on the first-16 ring slots when every ring
-    fits in 16 vertices (the masked slots contribute nothing)."""
-    if pv.is_cuda:
+# Argument names of the narrow phase over pools and a pair list, in order
+# (two_cross_pairs, two_cross_dispatch, two_cross.two_cross_cuda).
+TWO_CROSS_ARGS = ("p_verts", "p_n", "q_verts", "q_n", "qi", "qj", "shift",
+                  "perturb", "valid")
+
+
+def gather_rings(p_verts, p_n, q_verts, q_n, qi, qj, shift):
+    """The ring batch of a pair list, materialised: (pv [PC, V, 2], pn [PC],
+    qv [PC, W, 2] shifted to P's image, qn [PC])."""
+    return (p_verts[qi], p_n[qi], q_verts[qj] + shift[:, None, :], q_n[qj])
+
+
+def two_cross_pairs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                    valid) -> TwoCrossResult:
+    """Plain PyTorch version of the CUDA kernel (``two_cross.two_cross_cuda``),
+    with its signature: ring pools p_verts [N, V, 2] / p_n [N] and q_verts
+    [NQ, W, 2] / q_n [NQ], and the candidate list qi, qj [PC] (row k pairs
+    floe qi[k] with Q slot qj[k]), shift [PC, 2] (the periodic image of Q),
+    perturb [PC], valid [PC].  Gathers the rings, runs ``two_cross_pass`` and
+    zeroes the rows that are not valid (ok False)."""
+    pv, pn, qv, qn = gather_rings(p_verts, p_n, q_verts, q_n, qi, qj, shift)
+    # rings that all fit in 16 vertices take the first 16 slots: the masked
+    # slots contribute nothing, and the plain version is quadratic in them
+    if pv.shape[0] > 0 and not pv.is_cuda:
+        if pv.shape[1] > 16 and int(pn.max()) <= 16:
+            pv = pv[:, :16]
+        if qv.shape[1] > 16 and int(qn.max()) <= 16:
+            qv = qv[:, :16]
+    r = two_cross_pass(pv, pn, qv, qn, perturb)
+    return TwoCrossResult(*(
+        torch.where(valid.reshape((-1,) + (1,) * (x.dim() - 1)), x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+        for x in r
+    ))
+
+
+def two_cross_dispatch(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                       valid) -> TwoCrossResult:
+    """The narrow phase on the tensors' device: CUDA tensors go to the
+    hand-written kernel (geometry/two_cross.py), which raises on what it
+    cannot take; CPU tensors go to the plain ``two_cross_pairs``."""
+    if p_verts.is_cuda:
         from .two_cross import two_cross_cuda
 
-        return two_cross_cuda(pv, pn, qv, qn, perturb)
-    small = pv.shape[0] > 0 and int(pn.max()) <= 16 and int(qn.max()) <= 16
-    if small and (pv.shape[1] > 16 or qv.shape[1] > 16):
-        pv, qv = pv[:, :16], qv[:, :16]
-    return two_cross_pass(pv, pn, qv, qn, perturb)
+        return two_cross_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift,
+                              perturb, valid)
+    return two_cross_pairs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                           valid)
 
 
 def count_crossings(pv, pn, qv, qn, perturb=0.0):

@@ -1,17 +1,20 @@
 """The two-crossing narrow-phase CUDA kernel: build, bind, launch.
 
-``csrc/two_cross.cu`` (arithmetic in ``csrc/two_cross.cuh``) replaces the
-reference's Pallas TPU kernel ``subzero_tpu/geometry/pallas_clip.py:_kernel``.
-It is compiled at first use with ``nvcc`` into a shared library with a plain
-C interface under ``subzero_tpu_torch/_build/`` (rebuilt when a source is
-newer), loaded with ``ctypes``, and launched on PyTorch's current stream
-without synchronising.  The plain PyTorch version is
-``geometry/clip.py:two_cross_pass``; ``clip.two_cross_dispatch`` sends CUDA
-tensors here and CPU tensors there.
+``csrc/two_cross.cu`` (per-term arithmetic in ``csrc/two_cross.cuh``)
+replaces the reference's Pallas TPU kernel
+``subzero_tpu/geometry/pallas_clip.py:_kernel``.  It takes the floe pool, the
+Q pool and the candidate pair list, gathers each pair's two rings itself (a
+warp per pair) and writes one packed output.  It is compiled at first use
+with ``nvcc`` into a shared library with a plain C interface under
+``subzero_tpu_torch/_build/`` (rebuilt when a source is newer), loaded with
+``ctypes``, and launched on PyTorch's current stream without synchronising.
+The plain PyTorch version is ``geometry/clip.py:two_cross_pairs``;
+``clip.two_cross_dispatch`` sends CUDA tensors here and CPU tensors there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -35,7 +38,8 @@ NVCC_FLAGS = [
     "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-MAX_VERTS = 32  # widest ring the kernel takes (the floe pool's V)
+MAX_VERTS = 32  # widest ring the kernel takes: one vertex a lane
+OUT_FLOATS = 10  # contain, area, centroid, chord_a, chord_b, p_norm of a row
 
 _lib = None
 _launches = 0
@@ -92,73 +96,139 @@ def _load():
         for name, real in (("sz_two_cross_f32", ctypes.c_float),
                            ("sz_two_cross_f64", ctypes.c_double)):
             fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, i, i, i, real] + [p] * 8 + [p]
+            # pverts pnv N V qverts qnv NQ W qi qj shift perturb valid PC
+            # sliver out cnt ok stream
+            fn.argtypes = [p, p, i, i, p, p, i, i, p, p, p, p, p, i, real,
+                           p, p, p, p]
             fn.restype = ctypes.c_int
+        lib.sz_empty_launch.argtypes = [p]
+        lib.sz_empty_launch.restype = ctypes.c_int
         lib.sz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sz_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check_inputs(pv, pn, qv, qn, perturb):
-    if not pv.is_cuda:
-        raise ValueError("two_cross_cuda takes CUDA tensors")
-    if pv.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {pv.dtype}")
-    if pv.dim() != 3 or pv.shape[2] != 2 or qv.dim() != 3 or qv.shape[2] != 2:
-        raise ValueError("rings must be [B, V, 2]")
-    B, V, W = pv.shape[0], pv.shape[1], qv.shape[1]
-    if qv.shape[0] != B or tuple(pn.shape) != (B,) or tuple(qn.shape) != (B,) \
-            or tuple(perturb.shape) != (B,):
-        raise ValueError("pv, pn, qv, qn, perturb disagree on the batch size")
-    if V > MAX_VERTS or W > MAX_VERTS:
-        raise ValueError(f"ring width {max(V, W)} > {MAX_VERTS}")
-    for name, x, dt in (("qv", qv, pv.dtype), ("perturb", perturb, pv.dtype),
-                        ("pn", pn, torch.int32), ("qn", qn, torch.int32)):
-        if x.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
-    for name, x in (("pv", pv), ("pn", pn), ("qv", qv), ("qn", qn),
-                    ("perturb", perturb)):
-        if x.device != pv.device:
-            raise ValueError(f"{name} is on {x.device}, pv on {pv.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return B, V, W
+def _on_device(dev):
+    """Make ``dev`` the current CUDA device for a launch, at no cost when it
+    already is."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
-def two_cross_cuda(pv, pn, qv, qn, perturb) -> TwoCrossResult:
-    """The kernel on CUDA tensors: pv [B, V, 2], pn [B] int32, qv [B, W, 2]
-    (already shifted), qn [B] int32, perturb [B]; V, W <= 32; f32 or f64.
-    Same result as ``clip.two_cross_pass``."""
-    global _launches
-    B, V, W = _check_inputs(pv, pn, qv, qn, perturb)
-    dtype, dev = pv.dtype, pv.device
-    out = TwoCrossResult(
-        cnt=torch.empty((B,), dtype=torch.int32, device=dev),
-        contain=torch.empty((B,), dtype=dtype, device=dev),
-        ok=torch.empty((B,), dtype=torch.bool, device=dev),
-        area=torch.empty((B,), dtype=dtype, device=dev),
-        centroid=torch.empty((B, 2), dtype=dtype, device=dev),
-        chord_a=torch.empty((B, 2), dtype=dtype, device=dev),
-        chord_b=torch.empty((B, 2), dtype=dtype, device=dev),
-        p_norm=torch.empty((B, 2), dtype=dtype, device=dev),
-    )
-    if B == 0:
-        return out
-    lib = _load()
-    fn = lib.sz_two_cross_f64 if dtype == torch.float64 else lib.sz_two_cross_f32
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            pv.data_ptr(), pn.data_ptr(), qv.data_ptr(), qn.data_ptr(),
-            perturb.data_ptr(), B, V, W, sliver_tol(dtype),
-            out.cnt.data_ptr(), out.ok.data_ptr(), out.contain.data_ptr(),
-            out.area.data_ptr(), out.centroid.data_ptr(),
-            out.chord_a.data_ptr(), out.chord_b.data_ptr(),
-            out.p_norm.data_ptr(), stream,
-        )
+def _raise_if(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.sz_cuda_error_string(rc).decode()
-        raise RuntimeError(f"two_cross kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid):
+    """Raise on what the kernel does not take.  Reads only the tensors'
+    metadata: no value leaves the device, nothing synchronises."""
+    dtype, dev = p_verts.dtype, p_verts.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    PC = qi.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    for name, x, dt, shape in (
+        ("p_verts", p_verts, dtype, None),
+        ("p_n", p_n, i32, p_verts.shape[:1]),
+        ("q_verts", q_verts, dtype, None),
+        ("q_n", q_n, i32, q_verts.shape[:1]),
+        ("qi", qi, i64, (PC,)),
+        ("qj", qj, i64, (PC,)),
+        ("shift", shift, dtype, (PC, 2)),
+        ("perturb", perturb, dtype, (PC,)),
+        ("valid", valid, torch.bool, (PC,)),
+    ):
+        if not x.is_cuda:
+            raise ValueError(f"two_cross_cuda takes CUDA tensors; {name} is on {x.device}")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+        if shape is None:  # a ring pool; the lanes load whole vertices
+            if x.dim() != 3 or x.shape[2] != 2:
+                raise ValueError(f"{name} must be a ring pool [n, V, 2]")
+            if x.shape[1] > MAX_VERTS:
+                raise ValueError(f"ring width {x.shape[1]} > {MAX_VERTS}")
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+        elif x.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, p_verts on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return PC
+
+
+def _itemsize(dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def alloc_output(PC: int, dtype, device) -> torch.Tensor:
+    """The one buffer a launch writes: PC rows of OUT_FLOATS values of
+    ``dtype``, then PC int32 counts, then PC ok bytes."""
+    return torch.empty((PC * (OUT_FLOATS * _itemsize(dtype) + 5),),
+                       dtype=torch.uint8, device=device)
+
+
+def result_of(buf, PC: int, dtype) -> TwoCrossResult:
+    """The TwoCrossResult whose fields are views of a launch's buffer."""
+    nf = PC * OUT_FLOATS * _itemsize(dtype)
+    fl = buf[:nf].view(dtype).view(PC, OUT_FLOATS)
+    return TwoCrossResult(
+        cnt=buf[nf:nf + 4 * PC].view(torch.int32), contain=fl[:, 0],
+        ok=buf[nf + 4 * PC:].view(torch.bool), area=fl[:, 1],
+        centroid=fl[:, 2:4], chord_a=fl[:, 4:6], chord_b=fl[:, 6:8],
+        p_norm=fl[:, 8:10],
+    )
+
+
+def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                valid) -> None:
+    """One launch of the kernel on checked inputs into a buffer from
+    ``alloc_output`` (what ``two_cross_cuda`` does after its checks; timing
+    loops call it to leave the host's share out)."""
+    global _launches
+    PC, dtype, dev = qi.shape[0], p_verts.dtype, p_verts.device
+    if PC == 0:
+        return
+    lib = _load()
+    fn = lib.sz_two_cross_f64 if dtype == torch.float64 else lib.sz_two_cross_f32
+    out = buf.data_ptr()  # the layout of alloc_output
+    cnt = out + PC * OUT_FLOATS * _itemsize(dtype)
+    with _on_device(dev):
+        rc = fn(
+            p_verts.data_ptr(), p_n.data_ptr(), p_verts.shape[0], p_verts.shape[1],
+            q_verts.data_ptr(), q_n.data_ptr(), q_verts.shape[0], q_verts.shape[1],
+            qi.data_ptr(), qj.data_ptr(), shift.data_ptr(), perturb.data_ptr(),
+            valid.data_ptr(), PC, sliver_tol(dtype), out, cnt, cnt + 4 * PC,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_if(lib, rc, "two_cross kernel")
     _launches += 1
-    return out
+
+
+def two_cross_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                   valid) -> TwoCrossResult:
+    """The kernel on CUDA tensors: ring pools p_verts [N, V, 2] with p_n [N]
+    int32 and q_verts [NQ, W, 2] with q_n [NQ] int32 (V, W <= 32; f32 or
+    f64), and the pair list qi, qj [PC] int64, shift [PC, 2], perturb [PC],
+    valid [PC] bool.  Same result as ``clip.two_cross_pairs``: a row that is
+    not valid is zeros and not ok (so is a row whose index lies outside its
+    pool, which the plain version refuses).  The result's fields are views
+    of one allocation."""
+    PC = _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid)
+    dtype = p_verts.dtype
+    buf = alloc_output(PC, dtype, p_verts.device)
+    launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid)
+    return result_of(buf, PC, dtype)
+
+
+def empty_launch() -> None:
+    """Launch an empty kernel on the current stream through the same
+    ctypes route: the floor under any launch's time.  Not counted."""
+    lib = _load()
+    _raise_if(lib, lib.sz_empty_launch(torch.cuda.current_stream().cuda_stream),
+              "empty kernel")

@@ -41,6 +41,7 @@ from ..geometry.clip import (
     ClipRegions,
     DEFAULT_CAP,
     first_true,
+    gather_rings,
     intersect_regions,
     two_cross_dispatch,
 )
@@ -526,25 +527,36 @@ def _empty_regions(K, CAP, dtype, dev) -> ClipRegions:
 
 
 class NarrowBatch(NamedTuple):
-    """The candidate list and the ring batch the narrow phase runs on."""
+    """What the narrow phase runs on: the ring pools and the candidate list.
+    No per-pair ring is materialised; ``ring_batch`` builds them on request."""
 
-    pairs: PairArrays
+    pairs: PairArrays       # qi, qj, shift, valid of every candidate row
+    p_verts: torch.Tensor   # [N, V, 2] P pool: the floes
+    p_n: torch.Tensor       # [N] int32
     q_verts: torch.Tensor   # [NQ, V, 2] Q pool: floes, 4 walls, topography
-    q_n: torch.Tensor       # [NQ]
+    q_n: torch.Tensor       # [NQ] int32
     q_table: torch.Tensor   # [NQ, 9] (_q_table)
     sides: _PairSides       # both sides of every candidate pair
     row_cap: int            # row-structured entries are the first N * row_cap
-    pv: torch.Tensor        # [PC, V, 2] P rings
-    pn: torch.Tensor        # [PC] int32
-    qv: torch.Tensor        # [PC, V, 2] Q rings, shifted to P's image
-    qn: torch.Tensor        # [PC] int32
     perturb: torch.Tensor   # [PC] degeneracy-breaking offset of Q
+
+    def two_cross_args(self):
+        """The arguments of ``two_cross_dispatch`` (clip.TWO_CROSS_ARGS)."""
+        return (self.p_verts, self.p_n, self.q_verts, self.q_n, self.pairs.qi,
+                self.pairs.qj, self.pairs.shift, self.perturb, self.pairs.valid)
+
+
+def ring_batch(nb: NarrowBatch):
+    """The materialised rings of a NarrowBatch, (pv, pn, qv, qn, perturb) as
+    ``two_cross_pass`` takes them.  Off the main path: for checks that want
+    to see the rings the narrow phase gathers for itself."""
+    return (*gather_rings(*nb.two_cross_args()[:7]), nb.perturb)
 
 
 def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,
                        bins: tuple | None = None) -> NarrowBatch:
-    """Broad phase, Q pool and the (pv, pn, qv, qn, perturb) batch that
-    timestep_collisions hands to ``two_cross_dispatch``."""
+    """Broad phase, Q pool and the pair list that timestep_collisions hands
+    to ``two_cross_dispatch``."""
     N = floes.capacity
     V = floes.max_verts
     dtype = floes.verts.dtype
@@ -553,7 +565,6 @@ def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,
     PC = pairs.qi.shape[0]
 
     # ---------------- Q pool: floes, 4 walls, topography --------------------
-    T = domain.topography.count
     walls = [wall_rect(domain, w, V, dtype) for w in range(4)]
     q_verts = torch.cat(
         [floes.verts, torch.stack([wv for wv, _ in walls]),
@@ -571,37 +582,22 @@ def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,
     )
     q_table = _q_table(floes, domain, q_n, q_cent, dtype)
 
-    # ---------------- ring batch of every candidate pair --------------------
+    # ---------------- both sides of every candidate pair --------------------
     # hybrid list from find_candidate_pairs: N*row_cap row-structured entries
     # followed by _extra_cap(N) second-chance entries
-    i0 = pairs.qi
-    j0 = pairs.qj
     row_cap0 = (PC - _extra_cap(N)) // N
-    NQ = N + 4 + T
-    q_pack = torch.cat([q_verts.reshape(NQ, 2 * V), q_table], dim=1)
-    gpk = q_pack[j0]  # [PC, 2V + 9]: one gather for the whole j side
-    sides0 = _gather_sides(floes, q_table, i0, j0, row_cap=row_cap0,
-                           g=gpk[:, 2 * V:])
+    sides0 = _gather_sides(floes, q_table, pairs.qi, pairs.qj, row_cap=row_cap0)
 
     # deterministic degeneracy-breaking perturbation, scaled to the pair
     eps_rel = 1e-9 if dtype == torch.float64 else 2e-6
     perturb0 = eps_rel * (
         sides0.rmax_i + torch.where(sides0.is_floe_j, sides0.rmax_j, sides0.rmax_i)
     )
-
-    R0 = N * row_cap0
-    pv0 = floes.verts[:, None].expand(N, row_cap0, V, 2).reshape(R0, V, 2)
-    pn0 = floes.nverts[:, None].expand(N, row_cap0).reshape(R0)
-    if PC > R0:  # second-chance entries: arbitrary i
-        pv0 = torch.cat([pv0, floes.verts[i0[R0:]]], dim=0)
-        pn0 = torch.cat([pn0, floes.nverts[i0[R0:]]], dim=0)
-    qv0 = gpk[:, : 2 * V].reshape(PC, V, 2) + pairs.shift[:, None, :]
     return NarrowBatch(
-        pairs=pairs, q_verts=q_verts, q_n=q_n, q_table=q_table, sides=sides0,
-        row_cap=row_cap0, pv=pv0.contiguous(),
-        pn=pn0.to(torch.int32).contiguous(), qv=qv0.contiguous(),
-        qn=sides0.n_j.to(torch.int32).contiguous(),
-        perturb=perturb0.contiguous(),
+        pairs=pairs, p_verts=floes.verts.contiguous(), p_n=floes.nverts,
+        q_verts=q_verts,
+        q_n=q_n, q_table=q_table, sides=sides0, row_cap=row_cap0,
+        perturb=perturb0,
     )
 
 
@@ -651,14 +647,15 @@ def timestep_collisions(
     j0 = pairs.qj
     pvalid0 = pairs.valid
     R0 = N * row_cap0
-    tc = two_cross_dispatch(nb.pv, nb.pn, nb.qv, nb.qn, perturb0)
-    cnt0 = torch.where(pvalid0, tc.cnt, 0)
-    contain0 = torch.where(pvalid0, tc.contain, 0.0)
-    fast_ok = pvalid0 & tc.ok
+    # the narrow phase zeroes the rows that are not candidates (cnt 0, ok
+    # False, contain 0), so nothing here masks them again
+    tc = two_cross_dispatch(*nb.two_cross_args())
+    contain0 = tc.contain
+    fast_ok = tc.ok
 
     # ---------------- slow path: general region kernel ---------------------
     slow_cap = max(pair_cap // 128, 32)
-    slow_mask = pvalid0 & (cnt0 > 0) & ~tc.ok
+    slow_mask = (tc.cnt > 0) & ~tc.ok
     n_slow = int(slow_mask.sum())
     ssel = first_true(slow_mask, slow_cap, PC)
     svalid = ssel < PC

@@ -28,7 +28,7 @@ from test_collisions import (
     TOPO_DOMAIN,
     TRI,
 )
-from torch_port_helpers import assert_fields_close, port_state
+from torch_port_helpers import assert_fields_close, port_settings, port_state
 
 _jax_collide = jax.jit(
     jcol.timestep_collisions,
@@ -50,7 +50,8 @@ def _compare(jfl, jdomain, pair_cap, clip_cap=16):
                             collision_settings=CSET, pair_cap=pair_cap,
                             clip_cap=clip_cap, with_debug=True)
     tfl, _, _, tdom, _ = port_state(jfl, jdomain)
-    got = tcol.timestep_collisions(tfl, tdom, CONSTS, DT, CSET, pair_cap, clip_cap)
+    got = tcol.timestep_collisions(tfl, tdom, port_settings(CONSTS), DT,
+                                   port_settings(CSET), pair_cap, clip_cap)
     assert_fields_close(got.floes, ref.floes, what="floes.")
     np.testing.assert_allclose(
         got.stress_instant.numpy(), np.asarray(ref.stress_instant), rtol=1e-9,

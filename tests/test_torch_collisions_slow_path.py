@@ -6,7 +6,8 @@ timestep_collisions on packed 40-floe periodic fields whose slow path
 tier of 8 rows, beyond it, beyond its capacity, and retried for parity:
 every field of CollisionResult, f64, rtol 1e-9 (absolute floor 1e-9 of each
 field's largest magnitude).  _rank_select_rows on both of the reference's
-formulations (cumsum rank and top_k), exactly.
+formulations (cumsum rank and top_k), exactly.  And the step gives the same
+bits whether the narrow phase or the step's own masks zero the invalid rows.
 """
 
 import jax.numpy as jnp
@@ -16,10 +17,12 @@ import torch
 
 from subzero_tpu.core import BoundaryKind, make_domain
 from subzero_tpu.physics import collisions as jcol
+from subzero_tpu_torch.geometry.clip import gather_rings, two_cross_pass
 from subzero_tpu_torch.physics import collisions as tcol
 
-from test_collisions import GRID
+from test_collisions import CONSTS, CSET, DT, GRID
 from test_torch_collisions import _compare, _floes
+from torch_port_helpers import port_settings, port_state
 
 
 def _star(rng, nv, cx, cy, r0, spike):
@@ -65,6 +68,38 @@ def test_packed_periodic_field_slow_path(case):
         assert int(dbg["n_parity_bad"]) > 0
     if case == "beyond_slow_cap":
         assert bool(ref.overflow)
+
+
+@pytest.mark.parametrize("case", ["inside_first_tier", "parity_retry"])
+def test_invalid_rows_zeroed_by_narrow_phase_or_by_step_masks(case, monkeypatch):
+    """The narrow phase zeroes the rows of the fixed-shape pair list that are
+    no candidate pair, and timestep_collisions masks them no more.  A narrow
+    phase that leaves them as computed (garbage pairs of clamped indices),
+    wrapped in the masks the step used to apply (cnt, contain and ok where
+    the row is valid), must give a bit-identical CollisionResult."""
+    r0, spike, clip_cap, _ = PACKED_CASES[case]
+    tfl, _, _, tdom, _ = port_state(_packed_field(r0, spike), PERIODIC_DOMAIN)
+    args = (tfl, tdom, port_settings(CONSTS), DT, port_settings(CSET), 320, clip_cap)
+    got = tcol.timestep_collisions(*args)
+
+    seen = {}
+
+    def unmasked_then_step_masks(p_verts, p_n, q_verts, q_n, qi, qj, shift,
+                                 perturb, valid):
+        pv, pn, qv, qn = gather_rings(p_verts, p_n, q_verts, q_n, qi, qj, shift)
+        tc = two_cross_pass(pv, pn, qv, qn, perturb)
+        seen["garbage"] = bool((tc.cnt[~valid] != 0).any())
+        return tc._replace(cnt=torch.where(valid, tc.cnt, 0),
+                           contain=torch.where(valid, tc.contain, 0.0),
+                           ok=valid & tc.ok)
+
+    monkeypatch.setattr(tcol, "two_cross_dispatch", unmasked_then_step_masks)
+    ref = tcol.timestep_collisions(*args)
+    assert seen["garbage"]  # the invalid rows did hold something to mask
+    for f, g, r in zip(ref.floes._fields, got.floes, ref.floes):
+        assert torch.equal(g, r), f
+    assert torch.equal(got.stress_instant, ref.stress_instant)
+    assert bool(got.overflow) == bool(ref.overflow)
 
 
 @pytest.mark.parametrize(

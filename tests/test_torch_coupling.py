@@ -32,7 +32,12 @@ from subzero_tpu_torch.physics import coupling as tcpl
 from subzero_tpu_torch.physics import simplification as tsimp
 from subzero_tpu_torch.physics import update_floe as tupd
 
-from torch_port_helpers import assert_fields_close, assert_ocean_close, port_state
+from torch_port_helpers import (
+    assert_fields_close,
+    assert_ocean_close,
+    port_settings,
+    port_state,
+)
 
 GRID = make_grid(-1e5, 1e5, -1e5, 1e5, dx=1e4, dy=1e4)
 CONSTS = Constants(E=2e7)
@@ -41,6 +46,9 @@ FS = FloeSettings(
     subfloe_point_generator=SubGridPointsGenerator.from_grid(GRID, 2),
 )
 DT = 10.0
+# the port takes its own settings classes, built from the same field values
+TCONSTS = port_settings(CONSTS)
+TFS = port_settings(FS)
 
 
 def _state(periodic, seed=11):
@@ -86,7 +94,7 @@ def test_one_way_coupling(periodic):
     ref = _jax_one_way(floes, grid=GRID, domain=domain, ocean=ocean, atmos=atmos,
                        consts=CONSTS, window=W)
     tfl, toc, tat, tdom, tgrid = port_state(floes, domain, ocean, atmos, GRID)
-    got = tcpl.calc_one_way_coupling(tfl, tgrid, tdom, toc, tat, CONSTS, window=W)
+    got = tcpl.calc_one_way_coupling(tfl, tgrid, tdom, toc, tat, TCONSTS, window=W)
     assert_fields_close(got.floes, ref.floes, what="floes.")
     assert not bool(ref.window_ovf)
     mask = np.asarray(ref.pt_mask)
@@ -103,7 +111,7 @@ def test_one_way_window_overflow():
     ref = _jax_one_way(floes, grid=GRID, domain=domain, ocean=ocean, atmos=atmos,
                        consts=CONSTS, window=3)
     tfl, toc, tat, tdom, tgrid = port_state(floes, domain, ocean, atmos, GRID)
-    got = tcpl.calc_one_way_coupling(tfl, tgrid, tdom, toc, tat, CONSTS, window=3)
+    got = tcpl.calc_one_way_coupling(tfl, tgrid, tdom, toc, tat, TCONSTS, window=3)
     assert bool(ref.window_ovf) and bool(got.window_ovf)
 
 
@@ -120,9 +128,9 @@ def test_two_way_coupling(periodic, small_window):
                                       atmos=atmos, consts=CONSTS,
                                       floe_settings=FS, dt=DT, cell_cap=cell_cap)
     tfl, toc, tat, tdom, tgrid = port_state(floes, domain, ocean, atmos, GRID)
-    tow = tcpl.calc_one_way_coupling(tfl, tgrid, tdom, toc, tat, CONSTS)
+    tow = tcpl.calc_one_way_coupling(tfl, tgrid, tdom, toc, tat, TCONSTS)
     got_ocean, got_ovf = tcpl.calc_two_way_coupling(
-        tow, tgrid, tdom, toc, tat, CONSTS, FS, DT, cell_cap
+        tow, tgrid, tdom, toc, tat, TCONSTS, TFS, DT, cell_cap
     )
     assert_ocean_close(got_ocean, ref_ocean)
     assert bool(got_ovf) == bool(ref_ovf) == small_window
@@ -154,7 +162,7 @@ def test_timestep_floe_properties():
     si = jnp.asarray(np.random.default_rng(9).normal(size=(floes.capacity, 2, 2)) * 1e3)
     ref = jupd.timestep_floe_properties(floes, DT, FS, si)
     tfl, *_ = port_state(floes, domain, ocean, atmos, GRID)
-    got = tupd.timestep_floe_properties(tfl, DT, FS, torch.from_numpy(np.array(si)))
+    got = tupd.timestep_floe_properties(tfl, DT, TFS, torch.from_numpy(np.array(si)))
     assert_fields_close(got, ref)
 
 
@@ -188,7 +196,7 @@ def test_remove_and_dissolve():
     )
     ref_fl, ref_oc = jsimp.remove_and_dissolve(floes, ocean, GRID, domain, FS)
     tfl, toc, _, tdom, tgrid = port_state(floes, domain, ocean, atmos, GRID)
-    got_fl, got_oc = tsimp.remove_and_dissolve(tfl, toc, tgrid, tdom, FS)
+    got_fl, got_oc = tsimp.remove_and_dissolve(tfl, toc, tgrid, tdom, TFS)
     assert_fields_close(got_fl, ref_fl)
     assert_fields_close(got_oc, ref_oc)
     assert float(np.max(np.asarray(ref_oc.dissolved))) > 0

@@ -28,7 +28,11 @@ from subzero_tpu_torch.core import (
     make_ocean,
 )
 from subzero_tpu_torch.geometry import two_cross as tc_kernel
-from subzero_tpu_torch.geometry.clip import two_cross_dispatch, two_cross_pass
+from subzero_tpu_torch.geometry.clip import (
+    TWO_CROSS_ARGS,
+    two_cross_dispatch,
+    two_cross_pairs,
+)
 from subzero_tpu_torch.settings import (
     CollisionSettings,
     CouplingSettings,
@@ -37,7 +41,12 @@ from subzero_tpu_torch.settings import (
 )
 from subzero_tpu_torch.simulation import Simulation, run_scan
 
-from torch_port_helpers import assert_two_cross_close, build_batch, cuda_or_skip, tt
+from torch_port_helpers import (
+    assert_two_cross_close,
+    build_pair_list,
+    cuda_or_skip,
+    tt,
+)
 
 CASES = [(np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32)]
 IDS = ["f32-V16", "f64-V16", "f32-V32", "f64-V32"]
@@ -47,28 +56,77 @@ IDS = ["f32-V16", "f64-V16", "f32-V32", "f64-V32"]
 @pytest.mark.parametrize("dtype,V", CASES, ids=IDS)
 def test_cuda_kernel_matches_plain(dtype, V):
     dev = cuda_or_skip()
-    args = [a.to(dev) for a in tt(*build_batch(B=4096, seed=3, V=V, nmax=V, dtype=dtype))]
-    ref = two_cross_pass(*args)
+    np_args = build_pair_list(B=4096, seed=3, V=V, nmax=V, dtype=dtype)
+    args = [a.to(dev) for a in tt(*np_args)]
+    ref = two_cross_pairs(*args)
     before = tc_kernel.launch_count()
     got = two_cross_dispatch(*args)
     torch.cuda.synchronize()
     assert tc_kernel.launch_count() == before + 1
     assert_two_cross_close(got, ref, dtype == np.float64)
+    invalid = ~args[-1]
+    for f, x in zip(got._fields, got):  # rows that are no pair: exact zeros
+        assert not bool(x[invalid].any()), f
+    again = two_cross_dispatch(*args)
+    for f, x, y in zip(got._fields, got, again):  # same bits every launch
+        assert torch.equal(x, y), f
+
+
+def _replace(args, **kw):
+    return [kw.get(name, a) for name, a in zip(TWO_CROSS_ARGS, args)]
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_cannot_take():
     dev = cuda_or_skip()
-    pv, pn, qv, qn, pert = (a.to(dev) for a in tt(*build_batch(B=8, V=16, dtype=np.float32)))
-    wide = torch.zeros((8, 33, 2), dtype=pv.dtype, device=dev)
+    cpu = tt(*build_pair_list(B=8, V=16, dtype=np.float32))
+    args = [a.to(dev) for a in cpu]
+    p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid = args
+    with pytest.raises(ValueError, match="CUDA"):
+        tc_kernel.two_cross_cuda(*cpu)
+    with pytest.raises(ValueError, match="CUDA"):  # one stray CPU tensor
+        two_cross_dispatch(*_replace(args, perturb=cpu[7]))
+    wide = torch.zeros((8, 33, 2), dtype=p_verts.dtype, device=dev)
     with pytest.raises(ValueError, match="ring width"):
-        two_cross_dispatch(wide, pn, wide, qn, pert)
-    with pytest.raises(TypeError, match="pn"):
-        two_cross_dispatch(pv, pn.long(), qv, qn, pert)
+        two_cross_dispatch(*_replace(args, q_verts=wide))
+    with pytest.raises(TypeError, match="p_n"):
+        two_cross_dispatch(*_replace(args, p_n=p_n.long()))
+    with pytest.raises(TypeError, match="qi"):
+        two_cross_dispatch(*_replace(args, qi=qi.int()))
     with pytest.raises(TypeError, match="perturb"):
-        two_cross_dispatch(pv, pn, qv, qn, pert.double())
+        two_cross_dispatch(*_replace(args, perturb=perturb.double()))
+    with pytest.raises(TypeError, match="valid"):
+        two_cross_dispatch(*_replace(args, valid=valid.to(torch.uint8)))
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        two_cross_dispatch(*_replace(args, p_verts=p_verts.half()))
+    with pytest.raises(ValueError, match="shape"):
+        two_cross_dispatch(*_replace(args, shift=shift[:-1]))
     with pytest.raises(ValueError, match="contiguous"):
-        two_cross_dispatch(pv.transpose(0, 1).contiguous().transpose(0, 1), pn, qv, qn, pert)
+        two_cross_dispatch(*_replace(
+            args, p_verts=p_verts.transpose(0, 1).contiguous().transpose(0, 1)))
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.zeros((8 * 16 * 2 + 2,), dtype=p_verts.dtype, device=dev)
+        two_cross_dispatch(*_replace(args, p_verts=odd[2:].view(8, 16, 2)))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_zeroes_rows_with_an_index_outside_its_pool():
+    """Range checks on the host would synchronise; the kernel reads no ring
+    for such a row and returns it as zeros, not ok."""
+    dev = cuda_or_skip()
+    args = [a.to(dev) for a in tt(*build_pair_list(B=32, seed=7, V=16, dtype=np.float64))]
+    args[8] = torch.ones_like(args[8])
+    args[4], args[5] = args[4].clone(), args[5].clone()
+    args[4][3], args[5][5], args[4][8] = 32, -1, 10**12
+    got = two_cross_dispatch(*args)
+    torch.cuda.synchronize()
+    bad = torch.zeros_like(args[8])
+    bad[[3, 5, 8]] = True
+    for f, x in zip(got._fields, got):
+        assert not bool(x[bad].any()), f
+    good = args[:4] + [a[~bad] for a in args[4:]]
+    ref = two_cross_pairs(*good)
+    assert_two_cross_close(type(got)(*(x[~bad] for x in got)), ref, True)
 
 
 def _small_sim(device):

@@ -41,6 +41,7 @@ from torch_port_helpers import (
     assert_fields_close,
     assert_ocean_close,
     port_state,
+    port_settings,
     to_np,
 )
 
@@ -65,7 +66,8 @@ def test_initialize_floe_field_matches_jax():
                                 rng=np.random.default_rng(3), dtype=jnp.float64)
     tdom = tcore.make_domain(GRID, *([tcore.BoundaryKind.PERIODIC] * 4),
                              dtype=torch.float64, device="cpu")
-    got = tcore.initialize_floe_field(40, [0.8], tdom, 0.25, 0.05, FS,
+    got = tcore.initialize_floe_field(40, [0.8], tdom, 0.25, 0.05,
+                                      port_settings(FS),
                                       rng=np.random.default_rng(3),
                                       dtype=torch.float64, device="cpu")
     assert int(got.count()) == int(ref.count()) >= 30
@@ -141,7 +143,8 @@ def test_run_scan_matches_jax_step_by_step():
     )
     jsim = JaxSimulation(model=make_model(GRID, ocean, atmos, domain, floes), **settings)
     tfl, toc, tat, tdom, tgrid = port_state(floes, domain, ocean, atmos, GRID)
-    tsim = TorchSimulation(model=torch_make_model(tgrid, toc, tat, tdom, tfl), **settings)
+    tsim = TorchSimulation(model=torch_make_model(tgrid, toc, tat, tdom, tfl),
+                           **{k: port_settings(v) for k, v in settings.items()})
     assert (tsim.pair_cap, tsim.cell_cap) == (jsim.pair_cap, jsim.cell_cap)
     step = build_step(tsim)
 
@@ -193,10 +196,11 @@ def test_chip_smoke_config_mirrors_bench():
     assert_fields_close(got.model.floes, ref.model.floes, rtol=0, atol_rel=0)
     assert_fields_close(got.model.ocean, ref.model.ocean, rtol=0, atol_rel=0)
     assert_fields_close(got.model.atmos, ref.model.atmos, rtol=0, atol_rel=0)
-    assert got.consts == ref.consts
+    # the port's own classes, equal to the JAX package's field by field
+    assert got.consts == port_settings(ref.consts)
     for f in ("dt", "n_dt", "floe_settings", "coupling_settings",
               "collision_settings", "pair_cap", "cell_cap", "clip_cap", "bins"):
-        assert getattr(got, f) == getattr(ref, f), f
+        assert getattr(got, f) == port_settings(getattr(ref, f)), f
 
 
 def test_port_imports_no_jax():

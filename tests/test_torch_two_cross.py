@@ -3,8 +3,10 @@
 The plain PyTorch ``two_cross_pass`` is held to the reference's
 ``two_cross_pass`` and to its Pallas kernel (interpret mode), on random star
 rings covering disjoint, two-crossing, multi-crossing and containment
-pairs; the CUDA kernel's per-pair arithmetic (csrc/two_cross.cuh), built
-with g++ into a CPU shim, is held to the plain version.  The kernel itself
+pairs; the CUDA kernel's per-term arithmetic (csrc/two_cross.cuh), built
+with g++ into a CPU shim that combines it serially, is held to the plain
+version.  tests/test_torch_two_cross_pairs.py does the same over ring pools
+and a pair list, the form the kernel takes.  The kernel itself
 is held to the plain version on the card by tests/test_torch_cuda.py, which
 imports no JAX so that it runs where JAX is absent.  Tolerances: f64 rtol
 1e-9; f32 those of tests/test_pallas_clip.py.
@@ -19,12 +21,17 @@ import torch
 from subzero_tpu.geometry.clip import two_cross_pass as jax_two_cross_pass
 from subzero_tpu.geometry.pallas_clip import two_cross_pallas
 from subzero_tpu_torch.geometry import two_cross as tc_kernel
-from subzero_tpu_torch.geometry.clip import two_cross_dispatch, two_cross_pass
+from subzero_tpu_torch.geometry.clip import (
+    two_cross_dispatch,
+    two_cross_pairs,
+    two_cross_pass,
+)
 
 from torch_port_helpers import (
     assert_two_cross_close,
     build_batch,
     build_host_shim,
+    identity_pair_list,
     run_host_shim,
     tt,
 )
@@ -74,10 +81,10 @@ def test_host_shim_matches_plain(host_shim, dtype, V):
 
 
 def test_dispatch_routes_cpu_to_plain():
-    args = tt(*_batch(np.float64, 32, B=64))
+    args = identity_pair_list(*tt(*_batch(np.float64, 32, B=64)))
     before = tc_kernel.launch_count()
     got = two_cross_dispatch(*args)
-    ref = two_cross_pass(*args)
+    ref = two_cross_pairs(*args)
     assert tc_kernel.launch_count() == before  # no kernel launch on the CPU
     for f in ref._fields:
         torch.testing.assert_close(getattr(got, f), getattr(ref, f),
@@ -85,7 +92,6 @@ def test_dispatch_routes_cpu_to_plain():
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
-    pv, pn, qv, qn, pert = tt(*_batch(np.float32, 16, B=8))
+    args = identity_pair_list(*tt(*_batch(np.float32, 16, B=8)))
     with pytest.raises(ValueError, match="CUDA"):
-        tc_kernel.two_cross_cuda(pv, pn, qv, qn, pert)
-
+        tc_kernel.two_cross_cuda(*args)

@@ -6,6 +6,7 @@ port on CPU tensors, which take its plain PyTorch versions.
 """
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 from pathlib import Path
@@ -97,9 +98,51 @@ def assert_two_cross_close(got, ref, f64, what=""):
                                    err_msg=what + f)
 
 
+def build_pair_list(B=256, seed=0, V=16, nmax=16, dtype=np.float32):
+    """Ring pools and a candidate pair list as the narrow phase takes them
+    (clip.TWO_CROSS_ARGS, numpy): the rings of ``build_batch`` as a P pool
+    and a Q pool of B rings each, and 3B/2 rows.  Rows 0..B-1 pair P ring k
+    with Q ring k unshifted (every regime of ``build_batch``); the rest pair
+    random rings, so rings are shared between rows, with Q shifted by up to
+    a ring radius.  Every 7th row is not valid.  The rows are shuffled, so
+    nothing is row-structured."""
+    pv, pn, qv, qn, _ = build_batch(B=B, seed=seed, V=V, nmax=nmax, dtype=dtype)
+    rng = np.random.default_rng(seed + 1000)
+    E = B // 2
+    qi = np.concatenate([np.arange(B), rng.integers(0, B, E)]).astype(np.int64)
+    qj = np.concatenate([np.arange(B), rng.integers(0, B, E)]).astype(np.int64)
+    shift = np.concatenate([np.zeros((B, 2)), rng.uniform(-1, 1, (E, 2))])
+    order = rng.permutation(B + E)
+    qi, qj, shift = qi[order], qj[order], shift[order]
+    valid = (np.arange(B + E) % 7) != 3
+    pert = 1e-6 * (1 + rng.random(B + E))
+    return (pv, pn, qv, qn, qi, qj, shift.astype(dtype), pert.astype(dtype), valid)
+
+
+def rings_of_pair_list(args):
+    """The materialised (pv, pn, qv, qn, pert) of a ``build_pair_list``
+    result, in numpy: what the JAX package's narrow phase takes."""
+    p_verts, p_n, q_verts, q_n, qi, qj, shift, pert, _ = args
+    return (p_verts[qi], p_n[qi], q_verts[qj] + shift[:, None, :], q_n[qj], pert)
+
+
+def zero_invalid_rows(res, valid):
+    """A TwoCrossResult (either package) as numpy fields with the rows that
+    are not valid zeroed, as the port's narrow phase returns them."""
+    from subzero_tpu_torch.geometry.clip import TwoCrossResult
+
+    def z(x):
+        x = np.array(to_np(x))
+        x[~valid] = 0
+        return x
+
+    return TwoCrossResult(*(z(getattr(res, f)) for f in TwoCrossResult._fields))
+
+
 def build_host_shim(out_dir):
-    """g++ build of csrc/two_cross_host.cpp (the kernel's per-pair arithmetic
-    from two_cross.cuh) into a ctypes library; skips without g++."""
+    """g++ build of csrc/two_cross_host.cpp (the kernel's per-term arithmetic
+    from two_cross.cuh, combined serially) into a ctypes library; skips
+    without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -114,34 +157,44 @@ def build_host_shim(out_dir):
     for name, real in (("sz_two_cross_host_f32", ctypes.c_float),
                        ("sz_two_cross_host_f64", ctypes.c_double)):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, i, i, i, real] + [p] * 8
+        # the CUDA library's arguments without the stream
+        fn.argtypes = [p, p, i, i, p, p, i, i, p, p, p, p, p, i, real, p, p, p]
         fn.restype = None
     return lib
 
 
-def run_host_shim(lib, pv, pn, qv, qn, pert):
-    """The shim on CPU tensors -> TwoCrossResult of the port."""
-    from subzero_tpu_torch.geometry.clip import TwoCrossResult, sliver_tol
+def run_host_shim_pairs(lib, p_verts, p_n, q_verts, q_n, qi, qj, shift, pert,
+                        valid):
+    """The shim on CPU tensors (clip.TWO_CROSS_ARGS) -> TwoCrossResult of the
+    port, its fields views of one packed buffer as the CUDA wrapper's are."""
+    from subzero_tpu_torch.geometry.clip import sliver_tol
+    from subzero_tpu_torch.geometry.two_cross import alloc_output, result_of
 
-    B, V, W = pv.shape[0], pv.shape[1], qv.shape[1]
-    dtype = pv.dtype
-    out = TwoCrossResult(
-        cnt=torch.empty(B, dtype=torch.int32),
-        contain=torch.empty(B, dtype=dtype),
-        ok=torch.empty(B, dtype=torch.bool),
-        area=torch.empty(B, dtype=dtype),
-        centroid=torch.empty(B, 2, dtype=dtype),
-        chord_a=torch.empty(B, 2, dtype=dtype),
-        chord_b=torch.empty(B, 2, dtype=dtype),
-        p_norm=torch.empty(B, 2, dtype=dtype),
-    )
+    PC, dtype = qi.shape[0], p_verts.dtype
+    buf = alloc_output(PC, dtype, "cpu")
+    out = result_of(buf, PC, dtype)
     fn = lib.sz_two_cross_host_f64 if dtype == torch.float64 else lib.sz_two_cross_host_f32
-    args = [x.contiguous() for x in (pv, pn.to(torch.int32), qv, qn.to(torch.int32), pert)]
-    outs = ("cnt", "ok", "contain", "area", "centroid", "chord_a", "chord_b",
-            "p_norm")  # the C argument order
-    fn(*(a.data_ptr() for a in args), B, V, W, sliver_tol(dtype),
-       *(getattr(out, f).data_ptr() for f in outs))
+    a = [x.contiguous() for x in (p_verts, p_n.to(torch.int32), q_verts,
+                                  q_n.to(torch.int32), qi, qj, shift, pert, valid)]
+    fn(a[0].data_ptr(), a[1].data_ptr(), a[0].shape[0], a[0].shape[1],
+       a[2].data_ptr(), a[3].data_ptr(), a[2].shape[0], a[2].shape[1],
+       *(x.data_ptr() for x in a[4:]), PC, sliver_tol(dtype),
+       out.contain.data_ptr(), out.cnt.data_ptr(), out.ok.data_ptr())
     return out
+
+
+def identity_pair_list(pv, pn, qv, qn, pert):
+    """A materialised ring batch as pools and the pair list that pairs row k
+    with row k, unshifted and valid (clip.TWO_CROSS_ARGS)."""
+    B = pv.shape[0]
+    k = torch.arange(B, dtype=torch.int64, device=pv.device)
+    return (pv, pn, qv, qn, k, k, torch.zeros((B, 2), dtype=pv.dtype, device=pv.device),
+            pert, torch.ones((B,), dtype=torch.bool, device=pv.device))
+
+
+def run_host_shim(lib, pv, pn, qv, qn, pert):
+    """The shim on a materialised ring batch."""
+    return run_host_shim_pairs(lib, *identity_pair_list(pv, pn, qv, qn, pert))
 
 
 def cuda_or_skip():
@@ -176,6 +229,43 @@ def assert_fields_close(got, ref, rtol=1e-9, atol_rel=1e-9, what="", atol=None):
             np.testing.assert_array_equal(g, r, err_msg=what + f)
 
 
+def port_settings(obj):
+    """A settings or constants dataclass of the JAX package -> the port's own
+    class of the same name, built from the same field values (nested
+    dataclasses too).  The port shares no class with the JAX package, and its
+    ``isinstance`` checks want its own."""
+    import subzero_tpu_torch.constants as tconst
+    import subzero_tpu_torch.settings as tset
+
+    if isinstance(obj, tuple):
+        return tuple(port_settings(x) for x in obj)
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    name = type(obj).__name__
+    cls = getattr(tset, name, None) or getattr(tconst, name)
+    return cls(**{f.name: port_settings(getattr(obj, f.name))
+                  for f in dataclasses.fields(obj) if f.init})
+
+
+def assert_same_dataclass(ours, theirs):
+    """Two dataclass types have the same fields in the same order, with the
+    same declared types and the same defaults (a default that is itself a
+    settings object is compared through ``port_settings``)."""
+    fo, ft = dataclasses.fields(ours), dataclasses.fields(theirs)
+    assert [f.name for f in fo] == [f.name for f in ft], ours.__name__
+    for a, b in zip(fo, ft):
+        what = f"{ours.__name__}.{a.name}"
+        assert str(a.type) == str(b.type), what
+        assert (a.default is dataclasses.MISSING) == (b.default is dataclasses.MISSING), what
+        if a.default is not dataclasses.MISSING:
+            assert a.default == port_settings(b.default), what
+        assert (a.default_factory is dataclasses.MISSING) == (
+            b.default_factory is dataclasses.MISSING), what
+        if a.default_factory is not dataclasses.MISSING:
+            assert a.default_factory() == port_settings(b.default_factory()), what
+    assert ours.__dataclass_params__.frozen == theirs.__dataclass_params__.frozen
+
+
 def port_state(floes, domain, ocean=None, atmos=None, grid=None, dtype=torch.float64):
     """Reference state -> the port's (CPU) via subzero_tpu_torch.convert."""
     from subzero_tpu.core import make_atmos, make_grid, make_ocean
@@ -187,7 +277,7 @@ def port_state(floes, domain, ocean=None, atmos=None, grid=None, dtype=torch.flo
         ocean = make_ocean(grid)
     if atmos is None:
         atmos = make_atmos(grid)
-    return from_jax_state(floes, ocean, atmos, domain, grid, "cpu", dtype)
+    return from_jax_state(floes, ocean, atmos, domain, grid, "cpu", dtype=dtype)
 
 
 def assert_ocean_close(got, ref, rtol=1e-9, atol_rel=1e-9, what="ocean."):
