@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``subzero_tpu_torch``) on one NVIDIA GPU.
 
-Builds the narrow-phase CUDA kernel from ``subzero_tpu_torch/csrc``, holds it
-against its plain PyTorch version, and drives the port's device step
-(collide, couple, integrate, remove) through ``simulation.run_scan`` on the
-shear_flow_500 and many_floes_2000 configurations of ``bench.py``, built with
-the port's own host setup from seed 1.  Imports no JAX.
+Builds the narrow-phase CUDA kernel from ``subzero_tpu_torch/csrc`` and the
+native host clip library from ``subzero_tpu_torch/native``, holds the kernel
+against its plain PyTorch version, and drives the port on the card: the
+device step (collide, couple, integrate, remove) through
+``simulation.run_scan`` on the shear_flow_500, many_floes_2000 and
+many_floes_8000 (binned broad phase) configurations of ``bench.py``, and
+``simulation.run`` with the host life cycle (fracture, ridge/raft, weld,
+fuse) on the configuration of ``examples/many_floes.py``, all built with the
+port's own host setup from seed 1.  Imports no JAX.
 
 Phases (one JSON line each; any failure raises and the exit code is not 0):
 
@@ -22,12 +26,34 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             between two events) with an empty kernel's beside them as the
             floor, call_ms (the whole Python call), plain_ms, and bound_ms
             from the batch's own bytes and operations
-  slice     shear_flow_500, f32, 400 steps of run_scan on the card
+  slice     shear_flow_500, f32, 200 steps of run_scan on the card
   card_cpu  shear_flow_500, f64, 20 steps on the card (kernel) and on the
             CPU (plain versions): centroids, velocities, ocean stresses
   determinism  two 50-step runs on the card are bitwise equal
   many_floes_2000  50 steps of bench.build_sim(2000, 2e5, 2e3)'s counterpart,
             and the kernel's check and times at its batch (17 000 rows)
+  binned    bench.build_sim(8000, 4e5, 2e3, bins=True)'s counterpart: the
+            binned and the dense candidate list hold the same canonical pairs
+            once each at step 0; the kernel's check and times at its batch
+            (68 000 rows); 50 steps of run_scan; ms/step binned and dense on
+            that field and on many_floes_2000, in turns
+  overlaps  shear_flow_500 after 100 steps, f32 and f64: pair_overlaps and
+            pair_interactions on the card (kernel) against a CPU copy of the
+            state (plain versions)
+  lifecycle examples/many_floes.py's configuration (1 000 floes in a pool of
+            2 000, open boundaries, fracture every 75 steps, ridge/raft every
+            150, weld every 500), f32, 601 steps of run, twice from one seed:
+            topology changed, state finite, heights in bounds, mass ledger,
+            bitwise equal; seconds by host pass, segments, pool transfers,
+            host synchronisations a step, kernel launches by caller; on the
+            pool at step 0 and after the run, the step's batch through the
+            kernel and its plain version, and pair_overlaps and
+            pair_interactions on the card against a CPU copy
+  lifecycle_card_cpu  the same configuration and width, f64, with the
+            fracture pass's deformation on (so that run calls
+            pair_interactions) and weaker ice (so that the first pass
+            fractures floes): the card against the CPU to just past the
+            first fracture pass (76 steps)
   profile   (only when named) where a shear_flow_500 step's time goes:
             step_ms with coupling or collisions off, as bench.py splits it,
             and torch.profiler's device time by operator over 20 steps
@@ -62,7 +88,8 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
-          "many_floes_2000")
+          "many_floes_2000", "binned", "overlaps", "lifecycle",
+          "lifecycle_card_cpu")
 EXTRA_PHASES = ("profile",)
 SEED = 1
 
@@ -95,11 +122,12 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 def build_sim(n_floes, L, dx, *, device, dtype, seed=SEED, coupling=True,
-              collisions=True):
-    """The port's counterpart of ``bench.build_sim(n_floes, L, dx)``:
+              collisions=True, bins=False):
+    """The port's counterpart of ``bench.build_sim(n_floes, L, dx, bins=)``:
     periodic box, shear ocean, Voronoi floes at concentration 0.8 and mean
-    height 0.25, E from the floe areas, dt 20, two-way coupling on, dense
-    broad phase."""
+    height 0.25, E from the floe areas, dt 20, two-way coupling on; dense
+    broad phase, or with ``bins`` the binned one (``_auto_bins`` of the
+    field and 8 candidate rows a floe)."""
     from subzero_tpu_torch.constants import Constants
     from subzero_tpu_torch.core import (BoundaryKind, initialize_floe_field,
                                         make_atmos, make_domain, make_grid,
@@ -107,7 +135,7 @@ def build_sim(n_floes, L, dx, *, device, dtype, seed=SEED, coupling=True,
     from subzero_tpu_torch.settings import (CollisionSettings,
                                             CouplingSettings, FloeSettings,
                                             SubGridPointsGenerator)
-    from subzero_tpu_torch.simulation import Simulation
+    from subzero_tpu_torch.simulation import Simulation, _auto_bins
 
     kw = dict(dtype=dtype, device=device)
     grid = make_grid(0.0, L, 0.0, L, dx=dx, dy=dx)
@@ -126,7 +154,7 @@ def build_sim(n_floes, L, dx, *, device, dtype, seed=SEED, coupling=True,
                                   rng=np.random.default_rng(seed), **kw)
     area = floes.area[floes.active].cpu().numpy()
     modulus = 1.5e3 * (np.mean(np.sqrt(area)) + np.min(np.sqrt(area)))
-    return Simulation(
+    sim = Simulation(
         model=make_model(grid, ocean, atmos, domain, floes),
         consts=Constants(E=float(modulus)),
         dt=20,
@@ -136,6 +164,58 @@ def build_sim(n_floes, L, dx, *, device, dtype, seed=SEED, coupling=True,
                                            two_way_coupling_on=True),
         collision_settings=CollisionSettings(collisions_on=collisions),
         bins=None,
+    )
+    if bins:
+        sim.bins = _auto_bins(sim.model)
+        sim.pair_cap = 8 * sim.model.floes.capacity
+    return sim
+
+
+def build_many_floes(n_floes, *, device, dtype, n_dt, seed=SEED, deform=False,
+                     pstar=None):
+    """The port's counterpart of ``examples/many_floes.py:build``: a 2e5 m
+    open box on a 1e4 m grid, ocean u = -0.2, ``n_floes`` Voronoi floes at
+    concentration 0.8 in a pool of twice as many, dt 20, one-way coupling,
+    Hibler fracture into 3 pieces every 75 steps, ridge/raft every 150, weld
+    every 500 on a 4x4 grid; no writers.  ``pstar`` replaces the yield
+    curve's ice strength (the example keeps HiblerYieldCurve's default)."""
+    from subzero_tpu_torch.constants import Constants
+    from subzero_tpu_torch.core import (BoundaryKind, initialize_floe_field,
+                                        make_atmos, make_domain, make_grid,
+                                        make_model, make_ocean)
+    from subzero_tpu_torch.settings import (CouplingSettings, FloeSettings,
+                                            FractureSettings, HiblerYieldCurve,
+                                            RidgeRaftSettings,
+                                            SubGridPointsGenerator, WeldSettings)
+    from subzero_tpu_torch.simulation import Simulation
+
+    kw = dict(dtype=dtype, device=device)
+    grid = make_grid(-1e5, 1e5, -1e5, 1e5, dx=1e4, dy=1e4)
+    ocean = make_ocean(grid, u=-0.2, v=0.0, temp=-1.0, **kw)
+    atmos = make_atmos(grid, u=0.0, v=0.0, temp=-3.0, **kw)
+    domain = make_domain(grid, *([BoundaryKind.OPEN] * 4), **kw)
+    fs = FloeSettings(
+        subfloe_point_generator=SubGridPointsGenerator.from_grid(grid, 2))
+    floes = initialize_floe_field(n_floes, [0.8], domain, 0.25, 0.0, fs,
+                                  rng=np.random.default_rng(seed),
+                                  N=2 * n_floes, **kw)
+    area = floes.area[floes.active].cpu().numpy()
+    modulus = 1.5e3 * (np.mean(np.sqrt(area)) + np.min(np.sqrt(area)))
+    return Simulation(
+        model=make_model(grid, ocean, atmos, domain, floes),
+        consts=Constants(E=float(modulus)),
+        dt=20,
+        n_dt=n_dt,
+        seed=seed,
+        name="chip_smoke_many_floes",
+        floe_settings=fs,
+        coupling_settings=CouplingSettings(two_way_coupling_on=False),
+        fracture_settings=FractureSettings(
+            fractures_on=True,
+            criteria=HiblerYieldCurve() if pstar is None else HiblerYieldCurve(pstar=pstar),
+            dt=75, npieces=3, deform_on=deform),
+        ridgeraft_settings=RidgeRaftSettings(ridge_raft_on=True, dt=150),
+        weld_settings=WeldSettings(weld_on=True, dts=(500,), nxs=(4,), nys=(4,)),
     )
 
 
@@ -439,7 +519,7 @@ def run_timed(sim, n_steps):
     fl = sim.model.floes
     n_active = int(fl.count())
     pairs_per_step = int(find_candidate_pairs(fl, sim.model.domain,
-                                              sim.pair_cap).valid.sum())
+                                              sim.pair_cap, sim.bins).valid.sum())
     torch.cuda.synchronize()
     two_cross.reset_launch_count()
     t0 = time.perf_counter()
@@ -541,8 +621,9 @@ def phase_slice(dev, report):
     from subzero_tpu_torch.simulation import run_scan
 
     run_scan(fork(sim), 5)  # warm-up: allocator, cuBLAS handles
-    _, nums = run_timed(sim, 400)
+    _, nums = run_timed(sim, 200)
     report["launches"] = nums["kernel_launches"]
+    report["launches_by_path"]["run_scan step (slice)"] = nums["kernel_launches"]
     emit("slice", config="shear_flow_500", dtype="float32", **nums)
 
 
@@ -606,6 +687,552 @@ def phase_many_floes(dev, report):
     _, nums = run_timed(sim, 50)
     emit("many_floes_2000", dtype="float32", kernel_timing=timing,
          kernel_check=check, **nums)
+
+
+def canonical_pairs(pairs, N):
+    """The valid rows of a candidate list as sorted canonical rows (i, j,
+    shift x, shift y): a floe-floe pair is turned so that i < j, its shift
+    negated with it (tests/test_binned.py).  Raises on a duplicate."""
+    v = pairs.valid.cpu().numpy()
+    qi = pairs.qi.cpu().numpy()[v].astype(np.int64)
+    qj = pairs.qj.cpu().numpy()[v].astype(np.int64)
+    sh = np.round(pairs.shift.cpu().numpy()[v].astype(np.float64), 3) + 0.0
+    turn = (qj < N) & (qj < qi)
+    i = np.where(turn, qj, qi)
+    j = np.where(turn, qi, qj)
+    sh = np.where(turn[:, None], -sh + 0.0, sh)
+    rows = np.stack([i, j, sh[:, 0], sh[:, 1]], axis=1)
+    rows = rows[np.lexsort(rows.T[::-1])]
+    uniq = np.unique(rows, axis=0)
+    if len(uniq) != len(rows):
+        raise AssertionError(f"{len(rows) - len(uniq)} candidate pairs listed twice")
+    return rows
+
+
+def phase_binned(dev, report):
+    from subzero_tpu_torch.physics.collisions import (find_candidate_pairs,
+                                                      narrow_phase_batch)
+    from subzero_tpu_torch.simulation import run_scan
+
+    t0 = time.perf_counter()
+    sim = build_sim(8000, 4e5, 2e3, device=dev, dtype=torch.float32, bins=True)
+    setup_s = time.perf_counter() - t0
+    fl, dom = sim.model.floes, sim.model.domain
+    N = fl.capacity
+    dense_sim = dataclasses.replace(sim, bins=None)
+
+    # step 0: the same canonical pairs, once each, from both broad phases
+    binned = find_candidate_pairs(fl, dom, sim.pair_cap, sim.bins)
+    dense = find_candidate_pairs(fl, dom, sim.pair_cap, None)
+    if bool(binned.overflow) or bool(dense.overflow):
+        raise AssertionError("broad phase overflowed at step 0")
+    rows_b, rows_d = canonical_pairs(binned, N), canonical_pairs(dense, N)
+    if rows_b.shape != rows_d.shape or not np.array_equal(rows_b, rows_d):
+        raise AssertionError(
+            f"binned and dense candidate lists differ: {len(rows_b)} vs {len(rows_d)} pairs")
+    nb = narrow_phase_batch(fl, dom, sim.pair_cap, sim.bins)
+    check = check_main_path_batch(nb, "many_floes_8000", report)
+    timing = time_kernel(nb)
+
+    run_scan(fork(sim), 3)  # warm-up
+    _, nums = run_timed(fork(sim), 50)
+    if nums["n_overflow"]:
+        raise AssertionError(f"{nums['n_overflow']} overflow steps on many_floes_8000")
+    report["launches_by_path"]["run_scan step (binned)"] = nums["kernel_launches"]
+
+    # dense against binned, in turns (host time drifts within a call)
+    def ms(s, n=30):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_scan(fork(s), n)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / n
+
+    run_scan(fork(dense_sim), 3)
+    step_ms_8000 = {"binned": [], "dense": []}
+    for _ in range(2):
+        step_ms_8000["binned"].append(ms(sim))
+        step_ms_8000["dense"].append(ms(dense_sim))
+    small = build_sim(2000, 2e5, 2e3, device=dev, dtype=torch.float32)
+    small_binned = build_sim(2000, 2e5, 2e3, device=dev, dtype=torch.float32, bins=True)
+    run_scan(fork(small), 3)
+    run_scan(fork(small_binned), 3)
+    step_ms_2000 = {"binned": [], "dense": []}
+    for _ in range(2):
+        step_ms_2000["binned"].append(ms(small_binned))
+        step_ms_2000["dense"].append(ms(small))
+    emit("binned", config="many_floes_8000", dtype="float32",
+         host_setup_seconds=setup_s, bins=list(sim.bins), pair_cap=sim.pair_cap,
+         canonical_pairs_step0=int(len(rows_b)), binned_equals_dense=True,
+         narrow_phase_rows=int(nb.pairs.qi.shape[0]),
+         narrow_phase_valid_pairs=int(nb.pairs.valid.sum()),
+         dense_rows=int(dense.qi.shape[0]), kernel_check=check,
+         kernel_timing=timing,
+         step_ms_many_floes_8000=step_ms_8000,
+         bins_many_floes_2000=list(small_binned.bins),
+         step_ms_many_floes_2000=step_ms_2000, **nums)
+
+
+def sorted_valid_rows(cols, valid, keys):
+    """The valid rows of some device columns on the host, sorted by the
+    ``keys`` columns (exact partner codes first, then a coordinate)."""
+    v = valid.cpu().numpy()
+    host = {k: c.cpu().numpy()[v].astype(np.float64) for k, c in cols.items()}
+    order = np.lexsort([np.round(host[k], 3) for k in reversed(keys)])
+    return {k: a[order] for k, a in host.items()}
+
+
+def compare_rows(card, cpu, exact, close, f64: bool) -> dict:
+    """Rows of the card against the CPU copy: the ``exact`` columns equal,
+    the ``close`` ones within the kernel-vs-plain tolerance of their kind,
+    relative to the column's largest magnitude.  Returns the largest
+    relative difference by column."""
+    for k in exact:
+        if card[k].shape != cpu[k].shape or not np.array_equal(card[k], cpu[k]):
+            raise AssertionError(
+                f"{k}: the card's valid rows differ from the CPU's "
+                f"({len(card[k])} vs {len(cpu[k])} rows)")
+    rtol, atol = (F64_TOL if f64 else F32_TOL)["area"]
+    worst = {}
+    for k in close:
+        if cpu[k].size == 0:  # no row at all (a field whose floes only touch)
+            worst[k] = 0.0
+            continue
+        scale = float(np.abs(cpu[k]).max())
+        err = np.abs(card[k] - cpu[k])
+        if not (err <= atol * max(scale, 1.0) + rtol * np.abs(cpu[k])).all():
+            raise AssertionError(f"{k}: card vs CPU beyond rtol {rtol}; max abs err "
+                                 f"{float(err.max())} at scale {scale}")
+        worst[k] = float(err.max()) / scale if scale > 0 else float(err.max())
+    return worst
+
+
+def drop_borderline_rows(card, cpu, nverts, f64: bool):
+    """Contact rows of one (i, j) pair that the card and the CPU list in
+    different numbers.  Past the kernel both sides run the same plain
+    PyTorch, whose sums differ in their last bits between the card and the
+    CPU, and two gates in it are discrete: the general clip keeps or drops a
+    region whose area is roundoff of the coordinates, and the force law
+    drops a region below min(nverts_i, nverts_j) * 100 / 1.75 in area
+    (collisions.py:_region_forces).  Such a pair's rows are taken out of both
+    sides and returned apart, and the surplus must be of that kind: every
+    region of the longer side beyond the shorter side's count (nearest to
+    the gate first) within the area tolerance of zero (at the scale of the
+    list's largest overlap) or of the gate.  Returns (card, cpu, the pairs
+    taken out)."""
+    rtol, atol = (F64_TOL if f64 else F32_TOL)["area"]
+    key = lambda rows: list(zip(rows["i"].astype(np.int64), rows["j"].astype(np.int64)))
+    kc, kh = key(card), key(cpu)
+    count = lambda ks: {k: ks.count(k) for k in set(ks)}
+    nc, nh = count(kc), count(kh)
+    odd = {k for k in set(nc) | set(nh) if nc.get(k, 0) != nh.get(k, 0)}
+    scale = max(float(np.abs(cpu["overlap"]).max()) if cpu["overlap"].size else 0.0, 1.0)
+    taken = []
+    for k in sorted(odd):
+        gate = min(int(nverts[k[0]]), int(nverts[k[1]]) if k[1] >= 0 else 4) * 100.0 / 1.75
+        oc = card["overlap"][[x == k for x in kc]]
+        oh = cpu["overlap"][[x == k for x in kh]]
+        longer = oc if len(oc) > len(oh) else oh
+        off = np.minimum(np.abs(longer), np.abs(longer - gate))
+        surplus = np.sort(off)[:abs(len(oc) - len(oh))]
+        if not (surplus <= atol * scale + rtol * max(scale, gate)).all():
+            raise AssertionError(
+                f"pair {k}: the card lists regions of overlap {oc.tolist()}, the CPU "
+                f"{oh.tolist()}; the surplus lies neither at zero (scale {scale}) nor at "
+                f"the min-area gate {gate}")
+        taken.append({"i": int(k[0]), "j": int(k[1]), "min_area_gate": gate,
+                      "overlap_card": oc.tolist(), "overlap_cpu": oh.tolist()})
+    keep_c = np.array([x not in odd for x in kc], bool)
+    keep_h = np.array([x not in odd for x in kh], bool)
+    return ({k: v[keep_c] for k, v in card.items()},
+            {k: v[keep_h] for k, v in cpu.items()}, taken)
+
+
+def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
+    """pair_overlaps and pair_interactions on the state of ``sim`` on the
+    card (kernel) against the same functions on a CPU copy of it (plain
+    versions): the same valid rows and partners, areas and forces within the
+    kernel-vs-plain tolerance.  The kernel's launches are counted from 0
+    around each call on the card and must be one each.  A query that ran out
+    of capacity fails the check, unless ``full_ok`` (the crowded pool a
+    life-cycle run leaves): then it must have run out on both sides, the
+    rows it kept are compared, and a pair with a region that only one side
+    lists is reported apart (drop_borderline_rows)."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.physics.collisions import pair_interactions, pair_overlaps
+
+    fl, dom = sim.model.floes, sim.model.domain
+    fl_cpu = fl.to("cpu")
+    dom_cpu = dataclasses.replace(
+        dom, vals=dom.vals.cpu(), velocities=dom.velocities.cpu(),
+        topography=type(dom.topography)(*(x.cpu() for x in dom.topography)))
+
+    two_cross.reset_launch_count()
+    i, j, area, valid, ovf = pair_overlaps(fl, dom, sim.pair_cap, sim.clip_cap, bins)
+    n_po = two_cross.launch_count()
+    ci, cj, carea, cvalid, covf = pair_overlaps(fl_cpu, dom_cpu, sim.pair_cap,
+                                                sim.clip_cap, bins)
+    if bool(ovf) != bool(covf) or (bool(ovf) and not full_ok):
+        raise AssertionError(f"pair_overlaps overflowed: card {bool(ovf)}, CPU {bool(covf)}")
+    po = compare_rows(
+        sorted_valid_rows({"i": i, "j": j, "area": area}, valid, ("i", "j")),
+        sorted_valid_rows({"i": ci, "j": cj, "area": carea}, cvalid, ("i", "j")),
+        ("i", "j"), ("area",), f64)
+
+    two_cross.reset_launch_count()
+    rows = pair_interactions(fl, dom, sim.consts, float(sim.dt), sim.pair_cap,
+                             sim.clip_cap, bins)
+    n_pi = two_cross.launch_count()
+    crows = pair_interactions(fl_cpu, dom_cpu, sim.consts, float(sim.dt),
+                              sim.pair_cap, sim.clip_cap, bins)
+    if bool(rows["overflow"]) != bool(crows["overflow"]) or (
+            bool(rows["overflow"]) and not full_ok):
+        raise AssertionError(f"pair_interactions overflowed: card {bool(rows['overflow'])}, "
+                             f"CPU {bool(crows['overflow'])}")
+    cols = ("i", "j", "px", "fx", "fy", "py", "torque", "overlap")
+    card_rows = sorted_valid_rows({k: rows[k] for k in cols}, rows["valid"], ("i", "j", "px"))
+    cpu_rows = sorted_valid_rows({k: crows[k] for k in cols}, crows["valid"], ("i", "j", "px"))
+    borderline = []
+    if full_ok:
+        card_rows, cpu_rows, borderline = drop_borderline_rows(
+            card_rows, cpu_rows, fl_cpu.nverts.numpy(), f64)
+    pi = compare_rows(card_rows, cpu_rows, ("i", "j"), cols[2:], f64)
+    if n_po != 1 or n_pi != 1:
+        raise AssertionError(f"kernel launches: pair_overlaps {n_po}, "
+                             f"pair_interactions {n_pi}; expected 1 each")
+    return {
+        "overlap_rows": int(valid.sum()), "interaction_rows": int(rows["valid"].sum()),
+        "pair_overlaps_max_rel_diff": po, "pair_interactions_max_rel_diff": pi,
+        "overflowed": {"pair_overlaps": bool(ovf), "pair_interactions": bool(rows["overflow"])},
+        "pairs_with_a_borderline_region_on_one_side": borderline,
+        "kernel_launches": {"pair_overlaps": n_po, "pair_interactions": n_pi},
+    }
+
+
+def phase_overlaps(dev, report):
+    from subzero_tpu_torch.simulation import run_scan
+
+    out = {}
+    n_po = n_pi = 0
+    for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+        sim, _ = run_scan(build_sim(500, 1e5, 2e3, device=dev, dtype=dtype), 100)
+        out[name] = overlaps_card_vs_cpu(sim, dtype == torch.float64, sim.bins)
+        if out[name]["overlap_rows"] == 0 or out[name]["interaction_rows"] == 0:
+            raise AssertionError("no overlapping pair after 100 steps")
+        n_po += out[name]["kernel_launches"]["pair_overlaps"]
+        n_pi += out[name]["kernel_launches"]["pair_interactions"]
+    by_path = report["launches_by_path"]
+    by_path["pair_overlaps (overlaps phase)"] = n_po
+    by_path["pair_interactions (overlaps phase)"] = n_pi
+    emit("overlaps", config="shear_flow_500 after 100 steps",
+         tolerance={"float32": F32_TOL["area"], "float64": F64_TOL["area"]}, **out)
+
+
+def count_host_syncs(fn):
+    """Run ``fn`` with PyTorch's synchronisation warnings on and count them
+    by the source line that made them: every blocking read of the device by
+    the host (item, tolist, cpu, a boolean test or a boolean index of a
+    tensor, nonzero) and every blocking copy to it.  Launches through ctypes
+    are not seen.  Returns (fn's result, count, the ten largest sources)."""
+    import collections
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    by = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+        if "synchroniz" in str(w.message))
+    return out, sum(by.values()), dict(by.most_common(10))
+
+
+class PoolTransfers:
+    """Counts and times the pool's crossings between the card and the host
+    while the block runs: every ``HostFloes(floes)`` (a pull, which also
+    waits for the device to finish the steps queued before it) and every
+    ``HostFloes.to_state()`` (a push)."""
+
+    def __enter__(self):
+        from subzero_tpu_torch.physics.lifecycle_host import HostFloes
+
+        self.cls = HostFloes
+        self.saved = (HostFloes.__init__, HostFloes.to_state)
+        self.stats = {"pulls": 0, "pull_seconds": 0.0, "pushes": 0, "push_seconds": 0.0}
+
+        def timed(fn, count, seconds):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.stats[count] += 1
+                self.stats[seconds] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        HostFloes.__init__ = timed(self.saved[0], "pulls", "pull_seconds")
+        HostFloes.to_state = timed(self.saved[1], "pushes", "push_seconds")
+        return self.stats
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.to_state = self.saved
+        return False
+
+
+def lifecycle_checks(sim, mass0, id0):
+    """What a life-cycle run must leave behind; returns its figures."""
+    fs = sim.floe_settings
+    fl = sim.model.floes
+    act = fl.active
+    check_finite(sim)
+    max_id = int(fl.id.max())
+    if max_id <= id0:
+        raise AssertionError("no floe was created: the topology did not change")
+    h = fl.height[act]
+    if not (bool((h >= fs.min_floe_height - 1e-6).all())
+            and bool((h <= fs.max_floe_height + 1e-6).all())):
+        raise AssertionError(f"heights outside [{fs.min_floe_height}, "
+                             f"{fs.max_floe_height}]: {float(h.min())}..{float(h.max())}")
+    mass = float(fl.mass[act].double().sum()) + float(sim.model.ocean.dissolved.double().sum())
+    if not mass <= mass0 * (1 + 1e-6):
+        raise AssertionError(f"floe mass + dissolved {mass} above the initial {mass0}")
+    return {"active_floes": int(act.sum()), "max_floe_id": max_id,
+            "mass_over_initial": mass / mass0}
+
+
+def lifecycle_batch_checks(sim, key, report) -> dict:
+    """On the pool of a life-cycle run, at its full width: the step's
+    narrow-phase batch through the kernel and its plain version, and
+    pair_overlaps / pair_interactions on the card against a CPU copy (a full
+    pool may run these queries out of capacity, as it does inside the run,
+    which counts it in n_overflow)."""
+    from subzero_tpu_torch.physics.collisions import narrow_phase_batch
+
+    nb = narrow_phase_batch(sim.model.floes, sim.model.domain, sim.pair_cap, sim.bins)
+    return {"step_batch": check_main_path_batch(nb, key, report),
+            "overlap_queries": overlaps_card_vs_cpu(sim, False, sim.bins, full_ok=True)}
+
+
+def phase_lifecycle(dev, report):
+    import warnings
+
+    from subzero_tpu_torch import native
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.simulation import run
+
+    n_dt = 600
+    base = build_many_floes(1000, device=dev, dtype=torch.float32, n_dt=n_dt)
+    fl0 = base.model.floes
+    mass0 = float(fl0.mass[fl0.active].double().sum())
+    id0 = int(fl0.id.max())
+    batches = {"step_0": lifecycle_batch_checks(base, "many_floes_lifecycle_step_0", report)}
+    warm = fork(base)
+    warm.n_dt = 5
+    run(warm)
+
+    runs = []
+    for _ in range(2):
+        sim = fork(base)
+        with PoolTransfers() as transfers, warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # overflow and pool-full notes
+            torch.cuda.synchronize()
+            two_cross.reset_launch_count()
+            t0 = time.perf_counter()
+            sim = run(sim)
+            launches = two_cross.launch_count()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        runs.append((sim, seconds, launches, transfers))
+    (a, seconds, launches, transfers), (b, seconds_b, _, _) = runs
+    for f, x, y in zip(a.model.floes._fields, a.model.floes, b.model.floes):
+        if not torch.equal(x, y):
+            raise AssertionError(f"floes.{f} differs between two runs from one seed")
+    figures = lifecycle_checks(a, mass0, id0)
+    st = a.run_stats
+    by = dict(st["host_pass_launches"])
+    step_launches = launches - sum(by.values())
+    if step_launches != st["steps"] or by["ridge_raft"] != st["host_pass_count"]["ridge_raft"]:
+        raise AssertionError(f"kernel launches: step {step_launches} in {st['steps']} "
+                             f"steps, host passes {by} of {st['host_pass_count']}")
+    by_path = report["launches_by_path"]
+    by_path["run step (lifecycle)"] = step_launches
+    by_path["pair_overlaps (lifecycle ridge/raft)"] = by["ridge_raft"]
+    batches["after_the_run"] = lifecycle_batch_checks(
+        a, "many_floes_lifecycle_after_the_run", report)
+    for q in ("pair_overlaps", "pair_interactions"):
+        by_path[f"{q} (lifecycle, held against the CPU)"] = sum(
+            v["overlap_queries"]["kernel_launches"][q] for v in batches.values())
+
+    # host synchronisations a step: a third, shorter run under sync warnings
+    short = fork(base)
+    short.n_dt = 99
+    short, syncs, sync_sources = count_host_syncs(lambda: run(short))
+    # and of device steps alone: 50 steps of run_scan on the same field
+    from subzero_tpu_torch.simulation import run_scan
+
+    _, scan_syncs, scan_sources = count_host_syncs(lambda: run_scan(fork(base), 50))
+    host_s = sum(st["host_pass_seconds"].values())
+    emit("lifecycle", config="examples/many_floes.py, 1000 floes in a pool of 2000",
+         dtype="float32", n_dt=n_dt, steps=st["steps"], seconds=seconds,
+         seconds_second_run=seconds_b, step_ms=1e3 * seconds / st["steps"],
+         device_steps_seconds=seconds - host_s,
+         host_pass_seconds=st["host_pass_seconds"],
+         host_pass_count=st["host_pass_count"], segments=st["segments"],
+         pool_transfers=transfers,
+         host_syncs_per_step_first_100_steps=syncs / short.run_stats["steps"],
+         host_sync_sources_first_100_steps=sync_sources,
+         host_syncs_per_step_run_scan_50_steps=scan_syncs / 50,
+         host_sync_sources_run_scan_50_steps=scan_sources,
+         host_pass_count_first_100_steps=short.run_stats["host_pass_count"],
+         kernel_launches={"step": step_launches, "pair_overlaps": by["ridge_raft"],
+                          "pair_interactions": by["fracture"]},
+         kernel_and_queries_vs_plain=batches,
+         n_overflow=a.n_overflow, bitwise_equal_second_run=True,
+         native_clip_served=native.available(), **figures)
+
+
+def fracture_margins(floes, sim):
+    """For the state a fracture pass would see: which floes it would
+    fracture (ids), how many it would at the yield curve's default ice
+    strength, and how far each floe's principal stresses lie from the yield
+    curve, as a fraction of the curve's size, for the floes whose stress is
+    not exactly zero (a floe never touched has principal stresses (0, 0), the
+    tip of the Hibler ellipse: the pass decides it from the curve's own
+    roundoff, which is the same on the card and on the CPU as long as the
+    mean height is, and it is counted apart)."""
+    from subzero_tpu_torch.physics import lifecycle_host as lh
+    from subzero_tpu_torch.settings import HiblerYieldCurve
+
+    hf = lh.HostFloes(floes)
+    f = hf.fields
+    chosen = lh.determine_fractures(hf, sim.fracture_settings.criteria, sim.floe_settings)
+    at_default = lh.determine_fractures(hf, HiblerYieldCurve(), sim.floe_settings)
+    idxs = np.nonzero(f["active"] & ~f["remove"])[0]
+    poly = lh.criteria_polygon(sim.fracture_settings.criteria, f["height"][idxs])
+    evals = np.linalg.eigvalsh(f["stress_accum"][idxs].astype(float))
+    a, b = poly, np.roll(poly, -1, axis=0)
+    ab = b - a
+    t = np.clip(np.einsum("kvd,vd->kv", evals[:, None, :] - a[None], ab)
+                / np.maximum((ab * ab).sum(1), 1e-300), 0.0, 1.0)
+    near = a[None] + t[..., None] * ab[None]
+    dist = np.sqrt(((evals[:, None, :] - near) ** 2).sum(-1)).min(1)
+    size = float(np.abs(poly).max())
+    stressed = (evals != 0).any(1)
+    margins = dict(zip((int(x) for x in f["id"][idxs][stressed]),
+                       (dist[stressed] / size).tolist()))
+    return (set(int(f["id"][i]) for i in chosen), margins, int((~stressed).sum()),
+            len(at_default))
+
+
+def phase_lifecycle_card_cpu(dev, report):
+    import warnings
+
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.simulation import build_step, run
+
+    def counted_run(sim, where, **kw):
+        """run(sim); on the card the kernel's launches are counted from 0
+        just before it and read just after."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            two_cross.reset_launch_count()
+            sim = run(sim, **kw)
+            n = two_cross.launch_count()
+        if where == "cpu" and n:
+            raise AssertionError(f"the CPU run launched the kernel {n} times")
+        return sim, n
+
+    n_before = 75   # steps 0..74: device steps only; the pass follows step 75
+    sims, launches = {}, {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        # the example's field at its full width, with the fracture pass's
+        # deformation on (so that run calls pair_interactions) and the ice
+        # strength lowered: at the curve's default no floe of this field has
+        # yielded by step 75 (counted below), at pstar = 200 many have
+        sim = build_many_floes(1000, device=device, dtype=torch.float64,
+                               n_dt=n_before - 1, deform=True, pstar=200.0)
+        id0 = int(sim.model.floes.id.max())
+        t0 = time.perf_counter()
+        sims[where], launches[where] = counted_run(sim, where)
+        if where == "cpu":
+            cpu_seconds = time.perf_counter() - t0
+    card, cpu = sims["card"], sims["cpu"]
+    if launches["card"] != n_before or any(card.run_stats["host_pass_launches"].values()):
+        raise AssertionError(f"{launches['card']} kernel launches in {n_before} steps "
+                             f"without an overlap query: {card.run_stats['host_pass_launches']}")
+    if card.run_stats["rng_state"] != cpu.run_stats["rng_state"]:
+        raise AssertionError("the generators parted before the first fracture pass")
+
+    # continuous fields after 75 steps, held to what contact dynamics predict
+    # of a 1e-9 difference: tenfold every 15 steps
+    tol = 1e-9 * 10 ** (n_before / 15)
+    fc, fh = card.model.floes, cpu.model.floes
+    for f in ("active", "id", "nverts"):
+        if not torch.equal(getattr(fc, f).cpu(), getattr(fh, f)):
+            raise AssertionError(f"floes.{f} differs between the card and the CPU")
+    diffs = {f: max_rel_diff(getattr(fc, f), getattr(fh, f))
+             for f in ("centroid", "u", "v", "xi", "collision_force", "stress_accum")}
+    if not max(diffs.values()) <= tol:
+        raise AssertionError(f"card vs CPU beyond {tol}: {diffs}")
+
+    # the state the fracture pass will see (one more device step, outside
+    # the counted runs), and how near any floe's stress lies to the yield curve
+    seen = {}
+    for where, sim in sims.items():
+        m = sim.model
+        floes, *_ = build_step(sim)(m.floes, m.ocean, m.domain, n_before)
+        seen[where] = fracture_margins(floes, sim)
+    (chosen_c, margin_c, _, _), (chosen_h, margin_h, n_zero, n_default) = (
+        seen["card"], seen["cpu"])
+    flipped = sorted(chosen_c ^ chosen_h)
+    if flipped:
+        raise AssertionError(
+            "fracture decisions differ between the card and the CPU for floe ids "
+            + ", ".join(f"{i} (distance to the yield curve {margin_h.get(i)} of its "
+                        f"size on the CPU, {margin_c.get(i)} on the card)" for i in flipped))
+
+    # step 75 with its fracture pass (deformation on: pair_interactions)
+    for where, sim in sims.items():
+        sim.rng_state = sim.run_stats["rng_state"]
+        sim.n_dt = 0
+        sims[where], launches[where] = counted_run(sim, where, start_tstep=n_before)
+    card, cpu = sims["card"], sims["cpu"]
+    n_pi = card.run_stats["host_pass_launches"]["fracture"]
+    n_step = launches["card"] - n_pi
+    if n_step != 1 or n_pi != 1:
+        raise AssertionError(f"step {n_before} with its fracture pass launched the kernel "
+                             f"{n_step} times from the step and {n_pi} times from "
+                             "pair_interactions; expected 1 and 1")
+    fc, fh = card.model.floes, cpu.model.floes
+    ids_c = set(fc.id[fc.active].cpu().tolist())
+    ids_h = set(fh.id[fh.active].tolist())
+    parents_c = set(fc.parent_id[fc.active & (fc.id > id0)].cpu().tolist())
+    parents_h = set(fh.parent_id[fh.active & (fh.id > id0)].tolist())
+    if ids_c != ids_h or parents_c != parents_h:
+        raise AssertionError(f"floe ids or fractured floes differ: ids {sorted(ids_c ^ ids_h)}, "
+                             f"parents {sorted(parents_c ^ parents_h)}")
+    if not parents_h:
+        raise AssertionError("no floe fractured at the first fracture pass")
+    if card.run_stats["rng_state"] != cpu.run_stats["rng_state"]:
+        raise AssertionError("the generators parted in the fracture pass")
+    after = {f: max_rel_diff(getattr(fc, f), getattr(fh, f))
+             for f in ("centroid", "u", "v", "area", "height")}
+    if not max(after.values()) <= tol:
+        raise AssertionError(f"card vs CPU after the fracture pass beyond {tol}: {after}")
+    by_path = report["launches_by_path"]
+    by_path["run step (lifecycle_card_cpu)"] = n_before + n_step
+    by_path["pair_interactions (lifecycle_card_cpu fracture)"] = n_pi
+    emit("lifecycle_card_cpu",
+         config="examples/many_floes.py, 1000 floes in a pool of 2000, deform_on, pstar 200",
+         dtype="float64", n_steps=n_before + 1, tolerance=tol,
+         max_rel_diff_before_pass=diffs, max_rel_diff_after_pass=after,
+         fractured_floes=len(parents_h), floes_after=len(ids_h),
+         would_fracture_at_the_default_pstar=n_default,
+         smallest_distance_to_yield_curve=min(margin_h.values()),
+         floes_with_zero_stress=n_zero, cpu_seconds_75_steps=cpu_seconds,
+         kernel_launches={"step": n_before + n_step, "pair_interactions": n_pi})
 
 
 def step_ms(sim, n_steps) -> float:
@@ -696,9 +1323,20 @@ def main(argv=None) -> int:
     info = two_cross.build(force=True)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", seconds=info["seconds"], library=info["path"], ptxas=ptxas)
+    # the native host clip (g++; host C++, not a GPU kernel): the life-cycle
+    # passes use it, and the run fails if it does not build here
+    from subzero_tpu_torch import native
 
-    report = {}
+    t0 = time.perf_counter()
+    if os.environ.get("SUBZERO_NATIVE", "1") != "0" and not (
+            native.build(force=True) and native.available()):
+        raise RuntimeError("g++ build of subzero_tpu_torch/native/clip.cpp failed")
+    emit("build", seconds=info["seconds"], library=info["path"], ptxas=ptxas,
+         native_clip={"served_by": "native" if native.available() else "python",
+                      "library": str(native.LIB_PATH),
+                      "seconds": time.perf_counter() - t0})
+
+    report = {"launches_by_path": {}}
     if "kernel" in phases:
         phase_kernel(dev, report)
     if "slice" in phases:
@@ -709,6 +1347,14 @@ def main(argv=None) -> int:
         phase_determinism(dev)
     if "many_floes_2000" in phases:
         phase_many_floes(dev, report)
+    if "binned" in phases:
+        phase_binned(dev, report)
+    if "overlaps" in phases:
+        phase_overlaps(dev, report)
+    if "lifecycle" in phases:
+        phase_lifecycle(dev, report)
+    if "lifecycle_card_cpu" in phases:
+        phase_lifecycle_card_cpu(dev, report)
     if "profile" in phases:
         phase_profile(dev)
     if opts.parent and report.get("parent_batches"):
@@ -716,7 +1362,8 @@ def main(argv=None) -> int:
              **time_parent_kernel(opts.parent, report["parent_batches"]))
 
     # the kernel's numbers at the main path's batch (shear_flow_500 after 20
-    # steps): ms is its own device time, call_ms the whole Python call
+    # steps): ms is its own device time, call_ms the whole Python call;
+    # launches is the slice phase's count
     t = report.get("timing", {})
     print(json.dumps({"kernels": [{
         "name": "two_cross",
@@ -724,6 +1371,8 @@ def main(argv=None) -> int:
         "source": "subzero_tpu_torch/csrc/two_cross.cu",
         "replaces": "subzero_tpu/geometry/pallas_clip.py:52",
         "launches": report.get("launches"),
+        # every path that launched it in this run, each counted from 0
+        "launches_by_path": report["launches_by_path"],
         "max_abs_err": report.get("max_abs_err"),
         "ms": t.get("device_ms"),
         "plain_ms": t.get("plain_ms"),

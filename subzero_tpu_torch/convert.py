@@ -3,9 +3,11 @@
 ``from_jax_state`` takes the reference's state objects (``FloeState``,
 ``OceanState``, ``AtmosState``, ``Domain``, ``RegRectilinearGrid``) and
 returns the port's, field for field, so both packages compute on the same
-numbers.  Every array field is read through ``numpy.asarray``, so the
-reference's arrays, or numpy copies of them, are both accepted; this module
-imports no JAX.
+numbers (a domain's topography elements included).  Every array field is
+read through ``numpy.asarray``, so the reference's arrays, or numpy copies of
+them, are both accepted; this module imports no JAX.  ``to_numpy_state`` is
+the way back for a floe pool: a dict of numpy arrays by field name, which
+the reference's ``FloeState(**...)`` takes.
 """
 
 from __future__ import annotations
@@ -52,3 +54,9 @@ def from_jax_state(floes, ocean, atmos, domain, grid, device=None, *, dtype):
             x0=grid.x0, xf=grid.xf, y0=grid.y0, yf=grid.yf, Nx=grid.Nx, Ny=grid.Ny
         ),
     )
+
+
+def to_numpy_state(floes: FloeState) -> dict:
+    """A port floe pool as a dict of numpy arrays keyed by the field names
+    the reference's ``FloeState`` shares with the port's (dtypes kept)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in floes._asdict().items()}

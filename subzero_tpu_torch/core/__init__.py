@@ -6,6 +6,8 @@ from .domain import (  # noqa: F401
     TopographyField,
     empty_topography,
     make_domain,
+    make_topography,
+    topography_from_polys,
     wall_rect,
 )
 from .fields import AtmosState, OceanState, make_atmos, make_ocean  # noqa: F401

@@ -9,8 +9,9 @@ Port of ``subzero_tpu/core/domain.py``.  Each wall is one of four kinds:
 
 Wall kinds are static Python config; wall positions (``vals``: [north,
 south, east, west] edge coordinates) are a tensor so MOVING walls advance.
-Topography elements are padded rings carried as tensors; the pool is empty
-here or brought over from the reference by ``convert.py``.
+Topography elements are padded rings carried as tensors, built on the host
+by ``make_topography`` (or brought over from the reference by
+``convert.py``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ import dataclasses
 import enum
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..geometry import host_clip
+from ..geometry.polygon import max_radius, pad_polygon_np, poly_area, poly_centroid
 from .grid import RegRectilinearGrid
 
 
@@ -49,15 +53,51 @@ class TopographyField(NamedTuple):
         return self.verts.shape[0]
 
 
-def empty_topography(V: int = 32, *, dtype, device=None) -> TopographyField:
+def make_topography(coords_list, V: int = 32, *, dtype,
+                    device=None) -> TopographyField:
+    """Build a topography field from polygon coordinate lists.
+
+    De-intersects overlapping polygons (difference of later ones against
+    earlier), as initialize_topography_field does (topography.jl:154-169).
+    ``device=None`` is the card."""
     device = resolve_device(device)
+    polys: list[np.ndarray] = []
+    for c in coords_list:
+        c = np.asarray(c, dtype=float)
+        if c.ndim == 3:  # PolyVec with ring nesting
+            c = c[0]
+        ring = host_clip._clean_ring(c)
+        pieces = [ring]
+        for prev in polys:
+            nxt = []
+            for p in pieces:
+                nxt.extend(host_clip.difference(p, prev))
+            pieces = nxt
+        polys.extend(pieces)
+    return topography_from_polys(polys, V=V, dtype=dtype, device=device)
+
+
+def topography_from_polys(polys, V: int = 32, *, dtype,
+                          device=None) -> TopographyField:
+    device = resolve_device(device)
+    T = len(polys)
+    verts = np.zeros((T, V, 2))
+    nverts = np.zeros((T,), np.int32)
+    for i, p in enumerate(polys):
+        verts[i], nverts[i] = pad_polygon_np(p, V)
+    verts_t = torch.as_tensor(verts, dtype=dtype, device=device)
+    nverts_t = torch.as_tensor(nverts, device=device)
+    # T == 0 gives empty [0, 2] / [0] results from the same expressions
+    cent = poly_centroid(verts_t, nverts_t)
     return TopographyField(
-        verts=torch.zeros((0, V, 2), dtype=dtype, device=device),
-        nverts=torch.zeros((0,), dtype=torch.int32, device=device),
-        centroid=torch.zeros((0, 2), dtype=dtype, device=device),
-        rmax=torch.zeros((0,), dtype=dtype, device=device),
-        area=torch.zeros((0,), dtype=dtype, device=device),
+        verts=verts_t, nverts=nverts_t, centroid=cent,
+        rmax=max_radius(verts_t, nverts_t, cent),
+        area=poly_area(verts_t, nverts_t),
     )
+
+
+def empty_topography(V: int = 32, *, dtype, device=None) -> TopographyField:
+    return topography_from_polys([], V=V, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

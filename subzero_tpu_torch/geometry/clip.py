@@ -344,6 +344,11 @@ def intersect_regions(pv, pn, qv, qn, CAP: int = DEFAULT_CAP, perturb=0.0) -> Cl
 # two-crossing fast path
 # ---------------------------------------------------------------------------
 
+def intersect_area(pv, pn, qv, qn, CAP: int = DEFAULT_CAP):
+    """Total intersection area only, per pair of the batch."""
+    return intersect_regions(pv, pn, qv, qn, CAP=CAP).total_area
+
+
 class TwoCrossResult(NamedTuple):
     """Fused crossing count + single-region narrow phase over B pairs.
 

@@ -1,11 +1,12 @@
 """Host-side (numpy) exact polygon booleans for setup-time operations.
 
-Port of the pure-Python path of ``subzero_tpu/geometry/host_clip.py`` (the
-reference additionally routes through a native C++ build of the same
-algorithm; results agree ring for ring).  The device code never
+Port of ``subzero_tpu/geometry/host_clip.py``.  The device code never
 materializes polygons with dynamic vertex counts; these classic booleans
-(intersection / union / difference) serve host setup only: floe-field
-initialization (Voronoi cells minus topography) and polygon holes.
+(intersection / union / difference) serve the host: floe-field
+initialization (Voronoi cells minus topography) and the life-cycle passes
+(splitting, fusing, welding, ridging).  They route through the native C++
+build of the same algorithm (``subzero_tpu_torch/native``) when it is
+available; results agree ring for ring.
 
 Algorithm: crossing-graph Weiler-Atherton on single-ring CCW polygons,
 materializing region polygons.  Degeneracies are broken by retrying with a
@@ -287,8 +288,8 @@ def _boolean_halfplane(S, hc, C):
     return out
 
 
-def _with_retries(Sc, Cc, op, max_tries=8):
-    """Boolean with the degeneracy-perturbation retry loop.
+def _with_retries_py(Sc, Cc, op, max_tries=8):
+    """Pure-Python boolean with the degeneracy-perturbation retry loop.
 
     Attempt 1 keeps the historical fixed direction; later attempts rotate
     the offset by the golden angle so a degeneracy aligned with one
@@ -312,6 +313,27 @@ def _with_retries(Sc, Cc, op, max_tries=8):
         except _Degenerate:
             continue
     raise RuntimeError(f"polygon boolean '{op}' failed after {max_tries} perturbations")
+
+
+def _with_retries(Sc, Cc, op, max_tries=8):
+    """Boolean via the native C++ kernel (subzero_tpu_torch/native/clip.cpp, the
+    same algorithm + retry schedule) when available; pure-Python fallback
+    otherwise (SUBZERO_NATIVE=0 forces the fallback).  A degeneracy that
+    defeats the native kernel's fixed-direction ladder falls through to
+    the Python ladder, whose rotated perturbations break alignment-locked
+    cases (observed in ridge/raft differences of fracture siblings that
+    share a vertex)."""
+    from .. import native
+
+    try:
+        rings = native.poly_boolean(
+            op, np.asarray(Sc, float), np.asarray(Cc, float)
+        )
+    except RuntimeError:
+        rings = None
+    if rings is None:
+        return _with_retries_py(Sc, Cc, op, max_tries)
+    return rings
 
 
 def intersect(S, C):

@@ -11,7 +11,12 @@ batch dimensions directly.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+from ..device import resolve_device
 
 
 def edge_mask(n, V):
@@ -38,6 +43,11 @@ def close_ring(v, n):
     a = torch.gather(v, -2, cur[..., None].expand(v.shape))
     b = torch.gather(v, -2, nxt[..., None].expand(v.shape))
     return a, b
+
+
+def poly_edges(v, n):
+    """Alias of close_ring for readability."""
+    return close_ring(v, n)
 
 
 def signed_area(v, n):
@@ -90,6 +100,27 @@ def max_radius(v, n, centroid):
     return torch.sqrt(torch.amax(d2, dim=-1))
 
 
+def interior_angles(v, n):
+    """Interior angles (degrees) at each valid vertex; padded slots = 0."""
+    V = v.shape[-2]
+    idx = torch.arange(V, device=v.device)
+    nn = n[..., None].long()
+    last = torch.clamp(nn - 1, min=0)
+    prv = torch.where(idx == 0, last, torch.minimum(idx - 1, last))
+    nxt = torch.minimum(torch.where(idx >= nn - 1, 0, idx + 1), last)
+    prv = prv.expand(v.shape[:-1])[..., None].expand(v.shape)
+    nxt = nxt.expand(v.shape[:-1])[..., None].expand(v.shape)
+    u = torch.gather(v, -2, prv) - v
+    w = torch.gather(v, -2, nxt) - v
+    dot = torch.sum(u * w, dim=-1)
+    crs = u[..., 0] * w[..., 1] - u[..., 1] * w[..., 0]
+    ang = torch.atan2(torch.abs(crs), dot)
+    # reflex correction: interior is on the left for CCW; if cross(w, u) < 0
+    # the interior angle is > pi
+    ang = torch.where(crs > 0, 2.0 * math.pi - ang, ang)
+    return torch.where(edge_mask(n, V), torch.rad2deg(ang), 0.0)
+
+
 def point_in_polygon(p, v, n, include_boundary=True):
     """Crossing-number test of points p [..., 2] against rings v [..., V, 2]
     (even/odd rule on a ray in +x).  ``include_boundary`` also counts points
@@ -120,6 +151,59 @@ def point_in_polygon(p, v, n, include_boundary=True):
     return inside
 
 
+def points_in_polygon(pts, v, n, include_boundary=True):
+    """point_in_polygon over the leading axes of pts [..., 2]."""
+    return point_in_polygon(pts, v, n, include_boundary)
+
+
+def ensure_ccw(v, n):
+    """Reverse the rings that are clockwise.  Returns new padded rings."""
+    V = v.shape[-2]
+    s = signed_area(v, n)
+    idx = torch.arange(V, device=v.device)
+    nn = n[..., None].long()
+    rev = torch.where(
+        idx < nn,
+        torch.remainder(nn - 1 - idx, torch.clamp(nn, min=1)),
+        torch.clamp(nn - 1, min=0),
+    )
+    rev = rev.expand(v.shape[:-1])[..., None].expand(v.shape)
+    return torch.where((s < 0)[..., None, None], torch.gather(v, -2, rev), v)
+
+
+def pad_polygon(coords, V, *, dtype, device=None):
+    """Host helper: list/array of [n, 2] -> (padded [V, 2], n int32 scalar).
+
+    Drops a repeated closing vertex if present.  Pads by repeating the last
+    vertex.  ``device=None`` is the card."""
+    device = resolve_device(device)
+    out, n = pad_polygon_np(coords, V)
+    return (torch.as_tensor(out, dtype=dtype, device=device),
+            torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def pad_polygon_np(coords, V):
+    """``pad_polygon`` on the host: (padded float64 [V, 2] array, n)."""
+    c = np.asarray(coords, dtype=np.float64)
+    if c.ndim != 2 or c.shape[-1] != 2:
+        raise ValueError(f"expected [n,2] coords, got {c.shape}")
+    if len(c) > 1 and np.allclose(c[0], c[-1]):
+        c = c[:-1]
+    # drop duplicate adjacent vertices (valid_ringvec! analog)
+    keep = np.ones(len(c), dtype=bool)
+    for i in range(1, len(c)):
+        if np.allclose(c[i], c[i - 1]):
+            keep[i] = False
+    c = c[keep]
+    n = len(c)
+    if n > V:
+        raise ValueError(f"polygon has {n} vertices > capacity {V}")
+    if n < 3:
+        raise ValueError("polygon needs at least 3 distinct vertices")
+    pad = np.repeat(c[-1:], V - n, axis=0)
+    return np.concatenate([c, pad], axis=0), n
+
+
 def rotate_about(v, center, angle):
     """Rotate points v [..., V, 2] by angle [...] about center [..., 2]."""
     ca, sa = torch.cos(angle), torch.sin(angle)
@@ -127,3 +211,15 @@ def rotate_about(v, center, angle):
     x = ca[..., None] * d[..., 0] - sa[..., None] * d[..., 1]
     y = sa[..., None] * d[..., 0] + ca[..., None] * d[..., 1]
     return torch.stack([x, y], dim=-1) + center[..., None, :]
+
+
+def poly_bounds(v, n):
+    """(xmin, xmax, ymin, ymax) over valid vertices."""
+    m = edge_mask(n, v.shape[-2])
+    x = v[..., 0]
+    y = v[..., 1]
+    xmin = torch.amin(torch.where(m, x, torch.inf), dim=-1)
+    xmax = torch.amax(torch.where(m, x, -torch.inf), dim=-1)
+    ymin = torch.amin(torch.where(m, y, torch.inf), dim=-1)
+    ymax = torch.amax(torch.where(m, y, -torch.inf), dim=-1)
+    return xmin, xmax, ymin, ymax

@@ -1,9 +1,9 @@
 """Collisions: floe-floe, floe-wall, floe-topography contact forces.
 
-Port of ``subzero_tpu/physics/collisions.py`` (dense broad phase; the binned
-broad phase, ``pair_overlaps`` and ``pair_interactions`` are not ported
-yet).  Same physics and the same capacities and overflow flags as the
-reference:
+Port of ``subzero_tpu/physics/collisions.py``: the dense and the binned
+broad phase, the step's ``timestep_collisions``, and the host passes'
+``pair_overlaps`` / ``pair_interactions``.  Same physics and the same
+capacities and overflow flags as the reference:
 
   * periodic wrap is a minimum-image shift carried on each candidate pair;
   * each unordered pair is computed once and +F/-F land on both floes;
@@ -71,9 +71,14 @@ def find_candidate_pairs(
 ) -> PairArrays:
     """Broad phase: bounding-circle tests over all i<j pairs plus walls and
     topography (potential_interaction, collisions.jl:705-710), with the
-    minimum-image periodic fold."""
+    minimum-image periodic fold.
+
+    ``bins``: optional static (nbx, nby, M) spatial binning parameters - when
+    given, floe-floe candidates come from the bin neighbourhoods of a
+    spatial bin grid (O(N * M) instead of O(N^2)); M is the per-bin floe
+    capacity."""
     if bins is not None:
-        raise NotImplementedError("the binned broad phase is not ported yet")
+        return _find_candidate_pairs_binned(floes, domain, pair_cap, bins)
     return _find_candidate_pairs_dense(floes, domain, pair_cap)
 
 
@@ -134,23 +139,24 @@ def _wall_topo_masks(floes: FloeState, domain: Domain):
     r = floes.rmax
     act = floes.active
     vals = domain.vals
-    beyond = torch.stack(
+    # a wall that exerts no force keeps no candidate; the kinds are static
+    # Python config, so its column is zeros and no mask of kinds is uploaded
+    beyond = (
+        lambda: c[:, 1] + r > vals[NORTH],
+        lambda: c[:, 1] - r < vals[SOUTH],
+        lambda: c[:, 0] + r > vals[EAST],
+        lambda: c[:, 0] - r < vals[WEST],
+    )
+    none = torch.zeros_like(act)
+    fw = torch.stack(
         [
-            c[:, 1] + r > vals[NORTH],
-            c[:, 1] - r < vals[SOUTH],
-            c[:, 0] + r > vals[EAST],
-            c[:, 0] - r < vals[WEST],
+            act & beyond[w]()
+            if domain.kinds[w] in (BoundaryKind.COLLISION, BoundaryKind.MOVING)
+            else none
+            for w in range(4)
         ],
         dim=1,
     )
-    wall_force = torch.tensor(
-        [
-            domain.kinds[w] in (BoundaryKind.COLLISION, BoundaryKind.MOVING)
-            for w in range(4)
-        ],
-        device=c.device,
-    )
-    fw = act[:, None] & beyond & wall_force[None, :]
     T = domain.topography.count
     if T > 0:
         tc = domain.topography.centroid
@@ -229,6 +235,173 @@ def _find_candidate_pairs_dense(
     return PairArrays(
         qi=torch.cat([qi, ei]),
         qj=torch.cat([qj.reshape(-1), torch.clamp(ecol, max=NQ - 1)]),
+        shift=torch.cat([shift, eshift], dim=0),
+        valid=torch.cat([valid.reshape(-1), evalid]),
+        overflow=overflow,
+    )
+
+
+def _find_candidate_pairs_binned(
+    floes: FloeState, domain: Domain, pair_cap: int, bins: tuple
+) -> PairArrays:
+    """O(N*M) broad phase: floes sorted into an (nbx, nby) spatial bin grid;
+    candidates come from each floe's bin neighbourhood (wrapping through
+    periodic boundaries).  Requires bin size >= 2*max(rmax), which the
+    Simulation guarantees when choosing (nbx, nby); the overflow
+    flag fires when floes outgrow it or a bin holds more than M floes.
+    Same candidate order as the reference, element for element."""
+    nbx, nby, M = bins
+    N = floes.capacity
+    c = floes.centroid
+    r = floes.rmax
+    act = floes.active
+    dev = c.device
+    vals = domain.vals
+    w_val = vals[WEST]
+    s_val = vals[SOUTH]
+    Lx = vals[EAST] - w_val
+    Ly = vals[NORTH] - s_val
+    bx = Lx / nbx
+    by = Ly / nby
+
+    ibx = torch.clamp(torch.floor((c[:, 0] - w_val) / bx).long(), 0, nbx - 1)
+    iby = torch.clamp(torch.floor((c[:, 1] - s_val) / by).long(), 0, nby - 1)
+    NB = nbx * nby
+    bin_id = torch.where(act, ibx * nby + iby, NB)
+    # per-bin member lists: a stable sort on the bin id (members keep pool
+    # order inside a bin, inactive floes sort last), then each bin's
+    # contiguous run gathered into its [M] row
+    order = torch.argsort(bin_id, stable=True)
+    counts = torch.bincount(bin_id, minlength=NB + 1)[:NB]
+    start = torch.cumsum(counts, 0) - counts
+    kk = torch.arange(M, device=dev)
+    mem_valid = kk[None, :] < counts[:, None]                    # [NB, M]
+    flat = start[:, None] + kk[None, :]
+    jt = torch.where(mem_valid, order[torch.clamp(flat, max=N - 1)], N)
+    bin_overflow = torch.any(counts > M)
+
+    # Neighbour bins: a forward half-shell (self + E, NE, N, NW) instead of
+    # the full 3x3, so every floe-floe pair is enumerated by exactly one
+    # side.  Same-bin pairs keep the (i+j)-parity rule; cross-bin pairs
+    # belong to the floe whose bin sees the other in its forward set.
+    # Degenerate grids where the periodic wrap would collide a forward
+    # offset with a backward one (nbx or nby < 3) fall back to the full
+    # 3x3 with parity everywhere.
+    half_shell = (nbx >= 3 or not domain.ew_periodic) and (
+        nby >= 3 or not domain.ns_periodic
+    )
+    if half_shell:
+        d_off = ((0, 0), (1, 0), (1, 1), (0, 1), (-1, 1))
+    else:
+        d_off = ((0, 0), (1, 0), (1, 1), (0, 1), (-1, 1),
+                 (-1, 0), (-1, -1), (0, -1), (1, -1))
+    NK = len(d_off)
+    # (offsets and ownership are static Python config: built from scalars
+    # on the device, nothing is uploaded)
+    nx_idx = torch.stack([ibx + o[0] for o in d_off], dim=1)     # [N, NK]
+    ny_idx = torch.stack([iby + o[1] for o in d_off], dim=1)
+    if domain.ew_periodic:
+        nx_ok = torch.ones_like(nx_idx, dtype=torch.bool)
+        nx_idx = torch.remainder(nx_idx, nbx)
+    else:
+        nx_ok = (nx_idx >= 0) & (nx_idx < nbx)
+        nx_idx = torch.clamp(nx_idx, 0, nbx - 1)
+    if domain.ns_periodic:
+        ny_ok = torch.ones_like(ny_idx, dtype=torch.bool)
+        ny_idx = torch.remainder(ny_idx, nby)
+    else:
+        ny_ok = (ny_idx >= 0) & (ny_idx < nby)
+        ny_idx = torch.clamp(ny_idx, 0, nby - 1)
+    nb_id = nx_idx * nby + ny_idx                                # [N, NK]
+    nb_ok = nx_ok & ny_ok
+
+    # candidates: the members of the neighbour bins, gathered directly
+    jg = jt[nb_id]                                               # [N, NK, M]
+    slot_ok = jg < N
+    j_cand = torch.clamp(jg, max=N - 1)
+    cx_cand = c[:, 0][j_cand]
+    cy_cand = c[:, 1][j_cand]
+    r_cand = torch.where(slot_ok, r[j_cand], 0.0)
+    iidx = torch.arange(N, device=dev)[:, None, None]
+
+    # min-image fold + circle test (identical physics to the dense path)
+    dx = c[:, 0][:, None, None] - cx_cand
+    dy = c[:, 1][:, None, None] - cy_cand
+    sx = torch.zeros_like(dx)
+    sy = torch.zeros_like(dy)
+    if domain.ew_periodic:
+        sx = torch.where(torch.abs(dx) > Lx / 2, torch.sign(dx) * Lx, 0.0)
+        dx = dx - sx
+    if domain.ns_periodic:
+        sy = torch.where(torch.abs(dy) > Ly / 2, torch.sign(dy) * Ly, 0.0)
+        dy = dy - sy
+    rsum = r[:, None, None] + r_cand
+    own = (((iidx + j_cand) % 2) == 0) == (iidx < j_cand)
+    if half_shell:  # every forward neighbour bin (k > 0) is owned outright
+        own = own | (torch.arange(NK, device=dev) > 0)[None, :, None]
+    mask = (
+        nb_ok[:, :, None]
+        & slot_ok
+        & act[:, None, None]
+        # members are active by construction (inactive bin_id -> NB)
+        & own
+        & (iidx != j_cand)
+        & (dx * dx + dy * dy < rsum * rsum)
+    )
+
+    # the neighbourhoods only capture pairs within one bin length: flag if
+    # floes have grown (fuse/weld) beyond the bin-size guarantee
+    rmax_ok = 2.0 * torch.amax(torch.where(act, r, 0.0)) <= torch.minimum(bx, by)
+    bin_overflow = bin_overflow | ~rmax_ok
+
+    fw, ft = _wall_topo_masks(floes, domain)
+    T = domain.topography.count
+
+    # unified candidate matrix: [N, NK*M | 4 walls | T topo]
+    CFF = NK * M
+    C2 = CFF + 4 + T
+    full_mask = torch.cat([mask.reshape(N, CFF), fw, ft], dim=1)
+    row_cap = max(min(pair_cap // max(N, 1), C2), 8)
+    sel, valid, sel_overflow, epos = _rank_select_rows(
+        full_mask, row_cap, extra_cap=_extra_cap(N)
+    )
+    overflow = bin_overflow | sel_overflow
+
+    is_ff = sel < CFF
+    selg = torch.clamp(sel, max=CFF + 3 + T)
+    sel_ff = torch.clamp(selg, max=CFF - 1)
+    # ff columns map through j_cand; wall/topo columns map to pool slots
+    jc = j_cand.reshape(N, CFF)
+    j_ff = torch.gather(jc, 1, sel_ff)
+    j_other = N + torch.clamp(selg - CFF, min=0)
+    qj = torch.where(is_ff, j_ff, j_other).reshape(-1)
+    qi = torch.arange(N, device=dev)[:, None].expand(N, row_cap).reshape(-1)
+    sxg = torch.gather(sx.reshape(N, CFF), 1, sel_ff).reshape(-1)
+    syg = torch.gather(sy.reshape(N, CFF), 1, sel_ff).reshape(-1)
+    shift = torch.where(
+        is_ff.reshape(-1)[:, None], torch.stack([sxg, syg], dim=-1), 0.0
+    )
+
+    # second-chance block: flat positions into [N, C2]
+    evalid = epos < N * C2
+    eps_ = torch.clamp(epos, max=N * C2 - 1)
+    ei = torch.where(evalid, eps_ // C2, N - 1)
+    ecol = torch.where(evalid, eps_ % C2, 0)
+    e_is_ff = ecol < CFF
+    eflat = ei * CFF + torch.clamp(ecol, max=CFF - 1)
+    ej = torch.where(
+        e_is_ff, j_cand.reshape(-1)[eflat],
+        torch.clamp(N + torch.clamp(ecol - CFF, min=0), max=N + 3 + T),
+    )
+    ej = torch.where(evalid, ej, N - 1)
+    eshift = torch.where(
+        (e_is_ff & evalid)[:, None],
+        torch.stack([sx.reshape(-1)[eflat], sy.reshape(-1)[eflat]], dim=-1),
+        0.0,
+    )
+    return PairArrays(
+        qi=torch.cat([qi, ei]),
+        qj=torch.cat([qj, ej]),
         shift=torch.cat([shift, eshift], dim=0),
         valid=torch.cat([valid.reshape(-1), evalid]),
         overflow=overflow,
@@ -601,6 +774,104 @@ def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,
     )
 
 
+def _fast_regions(tc, fast_ok) -> ClipRegions:
+    """The narrow phase's two-crossing contacts as one-region ClipRegions
+    (a row is a region where ``fast_ok`` holds and its area is positive)."""
+    PC = tc.area.shape[0]
+    dtype, dev = tc.area.dtype, tc.area.device
+    zi = torch.zeros((PC, 1), dtype=torch.int32, device=dev)
+    return ClipRegions(
+        total_area=tc.area,
+        area=tc.area[:, None],
+        centroid=tc.centroid[:, None, :],
+        n_cross=torch.full((PC, 1), 2, dtype=torch.int32, device=dev),
+        chord_a=tc.chord_a[:, None, :],
+        chord_b=tc.chord_b[:, None, :],
+        p_norm=tc.p_norm[:, None, :],
+        p_len=torch.zeros((PC, 1), dtype=dtype, device=dev),
+        p_cnt=zi,
+        q_cnt=zi,
+        valid=(fast_ok & (tc.area > 0))[:, None],
+        overflow=torch.zeros((PC,), dtype=torch.bool, device=dev),
+    )
+
+
+class _SlowPairs(NamedTuple):
+    """The candidate rows that went through the general region clip."""
+
+    sel: torch.Tensor      # [slow_cap] row of the candidate list, PC = unused
+    valid: torch.Tensor    # [slow_cap]
+    safe: torch.Tensor     # [slow_cap] sel clamped into the list
+    i: torch.Tensor        # [slow_cap] P-side floe
+    j: torch.Tensor        # [slow_cap] Q-pool slot
+    shift: torch.Tensor    # [slow_cap, 2]
+    regions: ClipRegions   # rows that are not valid hold anything
+    n_slow: int            # slow rows in the list (may exceed slow_cap)
+
+
+def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
+               clip_cap: int, retry: bool) -> _SlowPairs:
+    """Send the candidate rows that cross but are not a clean two-crossing
+    contact (``cnt > 0 & ~ok``) through ``intersect_regions``, at most
+    ``max(pair_cap // 128, 32)`` of them.  Branches on the host on their
+    number (one synchronisation).  ``retry``: rerun rows whose crossing
+    parity came out odd with the perturbation flipped and scaled."""
+    dtype = floes.verts.dtype
+    dev = floes.verts.device
+    pairs, q_verts, q_n, perturb0 = nb.pairs, nb.q_verts, nb.q_n, nb.perturb
+    PC = pairs.qi.shape[0]
+    slow_cap = max(pair_cap // 128, 32)
+    slow_mask = (tc.cnt > 0) & ~tc.ok
+    n_slow = int(slow_mask.sum())
+    ssel = first_true(slow_mask, slow_cap, PC)
+    svalid = ssel < PC
+    ssafe = torch.clamp(ssel, max=PC - 1)
+    i1 = pairs.qi[ssafe]
+    j1 = pairs.qj[ssafe]
+    shift1 = pairs.shift[ssafe]
+
+    def clip_rows(rows, pscale):
+        return intersect_regions(
+            floes.verts[i1[rows]], floes.nverts[i1[rows]],
+            q_verts[j1[rows]] + shift1[rows][:, None, :], q_n[j1[rows]],
+            CAP=clip_cap, perturb=perturb0[ssafe[rows]] * pscale,
+        )
+
+    sregions = _empty_regions(slow_cap, clip_cap, dtype, dev)
+    if n_slow > 0:
+        # most calls have no multi-region/degenerate contacts; otherwise the
+        # smallest tier holding every slow pair sizes the batch (the rows
+        # past n_slow are invalid and masked downstream)
+        cap = min([t for t in SLOW_TIERS if t >= n_slow] + [slow_cap])
+        cap = min(cap, slow_cap)
+        got = clip_rows(torch.arange(cap, device=dev), 1.0)
+        sregions = ClipRegions(*(
+            torch.cat([g, z[cap:]], dim=0) for g, z in zip(got, sregions)
+        ))
+
+        # second-chance perturbation: a contact whose crossing parity comes
+        # out odd is a degeneracy the default perturbation failed to break;
+        # rerun those rows with the perturbation flipped and scaled, keeping
+        # the retry wherever it resolves (rows beyond RETRY_CAP stay
+        # overflowed and the caller's flag fires)
+        bad1 = svalid & sregions.overflow
+        if retry and bool(bad1.any()):
+            retry_cap = min(RETRY_CAP, slow_cap)
+            bsel = first_true(bad1, retry_cap, slow_cap)
+            bvalid = bsel < slow_cap
+            bsafe = torch.clamp(bsel, max=slow_cap - 1)
+            regs2 = clip_rows(bsafe, -41.0)
+            idx = torch.where(bvalid & ~regs2.overflow, bsafe, slow_cap)
+
+            def put(a, b):
+                ext = torch.cat([a, a[:1]], dim=0)  # row slow_cap: dropped
+                ext[idx] = b
+                return ext[:slow_cap]
+
+            sregions = ClipRegions(*(put(a, b) for a, b in zip(sregions, regs2)))
+    return _SlowPairs(ssel, svalid, ssafe, i1, j1, shift1, sregions, n_slow)
+
+
 def timestep_collisions(
     floes: FloeState,
     domain: Domain,
@@ -628,7 +899,7 @@ def timestep_collisions(
     vx = floes.verts[..., 0]
     vy = floes.verts[..., 1]
     vmask = torch.arange(V, device=dev)[None, :] < floes.nverts[:, None]
-    big = torch.tensor(1e30, dtype=dtype, device=dev)
+    big = 1e30
     for w, cmp in (
         (NORTH, lambda: torch.amax(torch.where(vmask, vy, -big), 1) > vals[NORTH]),
         (SOUTH, lambda: torch.amin(torch.where(vmask, vy, big), 1) < vals[SOUTH]),
@@ -640,8 +911,7 @@ def timestep_collisions(
 
     # ---------------- fused narrow phase (fast path) ------------------------
     nb = narrow_phase_batch(floes, domain, pair_cap, bins)
-    pairs, q_verts, q_n, sides0 = nb.pairs, nb.q_verts, nb.q_n, nb.sides
-    q_table, row_cap0, perturb0 = nb.q_table, nb.row_cap, nb.perturb
+    pairs, sides0, q_table, row_cap0 = nb.pairs, nb.sides, nb.q_table, nb.row_cap
     PC = pairs.qi.shape[0]
     i0 = pairs.qi
     j0 = pairs.qj
@@ -654,55 +924,10 @@ def timestep_collisions(
     fast_ok = tc.ok
 
     # ---------------- slow path: general region kernel ---------------------
-    slow_cap = max(pair_cap // 128, 32)
-    slow_mask = (tc.cnt > 0) & ~tc.ok
-    n_slow = int(slow_mask.sum())
-    ssel = first_true(slow_mask, slow_cap, PC)
-    svalid = ssel < PC
-    ssafe = torch.clamp(ssel, max=PC - 1)
-    i1 = i0[ssafe]
-    j1 = j0[ssafe]
-    shift1 = pairs.shift[ssafe]
-
-    def clip_rows(rows, pscale):
-        return intersect_regions(
-            floes.verts[i1[rows]], floes.nverts[i1[rows]],
-            q_verts[j1[rows]] + shift1[rows][:, None, :], q_n[j1[rows]],
-            CAP=clip_cap, perturb=perturb0[ssafe[rows]] * pscale,
-        )
-
-    sregions = _empty_regions(slow_cap, clip_cap, dtype, dev)
-    if n_slow > 0:
-        # most steps have no multi-region/degenerate contacts; otherwise the
-        # smallest tier holding every slow pair sizes the batch (the rows
-        # past n_slow are invalid and masked downstream)
-        cap = min([t for t in SLOW_TIERS if t >= n_slow] + [slow_cap])
-        cap = min(cap, slow_cap)
-        got = clip_rows(torch.arange(cap, device=dev), 1.0)
-        sregions = ClipRegions(*(
-            torch.cat([g, z[cap:]], dim=0) for g, z in zip(got, sregions)
-        ))
-
-        # second-chance perturbation: a contact whose crossing parity comes
-        # out odd is a degeneracy the default perturbation failed to break;
-        # rerun those rows with the perturbation flipped and scaled, keeping
-        # the retry wherever it resolves (rows beyond RETRY_CAP stay
-        # overflowed and the step flag fires)
-        bad1 = svalid & sregions.overflow
-        if bool(bad1.any()):
-            retry_cap = min(RETRY_CAP, slow_cap)
-            bsel = first_true(bad1, retry_cap, slow_cap)
-            bvalid = bsel < slow_cap
-            bsafe = torch.clamp(bsel, max=slow_cap - 1)
-            regs2 = clip_rows(bsafe, -41.0)
-            idx = torch.where(bvalid & ~regs2.overflow, bsafe, slow_cap)
-
-            def put(a, b):
-                ext = torch.cat([a, a[:1]], dim=0)  # row slow_cap: dropped
-                ext[idx] = b
-                return ext[:slow_cap]
-
-            sregions = ClipRegions(*(put(a, b) for a, b in zip(sregions, regs2)))
+    slow = _slow_path(floes, nb, tc, pair_cap, clip_cap, retry=True)
+    ssel, svalid, ssafe, sregions = slow.sel, slow.valid, slow.safe, slow.regions
+    i1, j1, shift1, n_slow = slow.i, slow.j, slow.shift, slow.n_slow
+    slow_cap = svalid.shape[0]
     slow_total = torch.where(svalid, sregions.total_area, 0.0)
 
     # total intersection area for every candidate pair (containment included);
@@ -740,20 +965,7 @@ def timestep_collisions(
     )
 
     # ---------------- forces on both contact lists -------------------------
-    fast_regions = ClipRegions(
-        total_area=tc.area,
-        area=tc.area[:, None],
-        centroid=tc.centroid[:, None, :],
-        n_cross=torch.full((PC, 1), 2, dtype=torch.int32, device=dev),
-        chord_a=tc.chord_a[:, None, :],
-        chord_b=tc.chord_b[:, None, :],
-        p_norm=tc.p_norm[:, None, :],
-        p_len=torch.zeros((PC, 1), dtype=dtype, device=dev),
-        p_cnt=torch.zeros((PC, 1), dtype=torch.int32, device=dev),
-        q_cnt=torch.zeros((PC, 1), dtype=torch.int32, device=dev),
-        valid=(fast_ok & (tc.area > 0))[:, None],
-        overflow=torch.zeros((PC,), dtype=torch.bool, device=dev),
-    )
+    fast_regions = _fast_regions(tc, fast_ok)
     pair_on0 = fast_ok & ~fuse_pair0 & ~dom_remove_pair0
     pair_on1 = (
         svalid
@@ -826,3 +1038,138 @@ def timestep_collisions(
         stress_instant=torch.where(act[:, None, None], stress_instant, 0.0),
         overflow=overflow,
     )
+
+
+def _encode_partner(j, N: int):
+    """Q-pool slot -> partner code: floes keep their pool index, walls are
+    -1..-4 (N, S, E, W), topography element t is -5 - t (domains.jl:150-163)."""
+    return torch.where(
+        j < N, j, torch.where(j < N + 4, -(j - N) - 1, -(j - N - 4) - 5)
+    )
+
+
+def pair_overlaps(
+    floes: FloeState,
+    domain: Domain,
+    pair_cap: int,
+    clip_cap: int = DEFAULT_CAP,
+    bins: tuple | None = None,
+):
+    """Overlap areas of all currently intersecting pairs, for the host
+    ridge/raft pass (the analog of walking per-floe interaction lists,
+    ridge_raft.jl:704-753).
+
+    Returns (i, j, area, valid, overflow): j >= 0 is a floe pool index;
+    j < 0 encodes walls (-1..-4 for N,S,E,W) and topography (-5 - t).
+    ``overflow`` (scalar bool) fires when the broad phase or the slow-path
+    multi-region capacity truncated candidates, i.e. the overlap list may
+    be incomplete (as timestep_collisions reports it)."""
+    N = floes.capacity
+    nb = narrow_phase_batch(floes, domain, pair_cap, bins)
+    pairs = nb.pairs
+    PC = pairs.qi.shape[0]
+    tc = two_cross_dispatch(*nb.two_cross_args())
+    # multi-region / degenerate pairs through the general clip
+    slow = _slow_path(floes, nb, tc, pair_cap, clip_cap, retry=False)
+    slow_total = torch.where(slow.valid, slow.regions.total_area, 0.0)
+    area = (
+        tc.contain
+        + torch.where(tc.ok, tc.area, 0.0)
+        + _put_rows(slow_total, slow.sel, PC)
+    )
+    valid = pairs.valid & (area > 0)
+    overflow = (
+        pairs.overflow
+        | (slow.n_slow > slow.valid.shape[0])
+        | torch.any(torch.where(slow.valid, slow.regions.overflow, False))
+    )
+    return pairs.qi, _encode_partner(pairs.qj, N), area, valid, overflow
+
+
+def pair_interactions(
+    floes: FloeState,
+    domain: Domain,
+    consts: Constants,
+    dt: float,
+    pair_cap: int,
+    clip_cap: int = DEFAULT_CAP,
+    bins: tuple | None = None,
+):
+    """Materialized per-contact interaction rows, for the fracture pass's
+    deformation and for diagnostics (the step only keeps aggregates).
+
+    Returns a dict of tensors over a fixed contact capacity:
+      i [K]        P-side floe pool index
+      j [K]        partner: >= 0 floe pool index, -1..-4 walls, <= -5 topo
+      fx, fy [K]   contact force on floe i (add_interactions! columns 2-3)
+      px, py [K]   force application point (columns 4-5)
+      torque [K]   torque about i's centroid (calc_torque!, column 6)
+      overlap [K]  region overlap area (column 7)
+      valid [K]    row validity mask
+      overflow []  capacity-truncation flag
+    Rows are two-sided for floe-floe contacts (add_interactions! on both
+    floes + the reaction pass, collisions.jl:285-309, 799-828): each
+    unordered pair emits the owner's row AND the partner's mirror row
+    (negated force, force point shifted to the partner's periodic frame,
+    torque about the partner's centroid).  Wall/topography contacts emit
+    one row.  Row order: fast owner rows, fast mirror rows, slow owner
+    rows, slow mirror rows, each in candidate-list order."""
+    N = floes.capacity
+    vals = domain.vals
+    nb = narrow_phase_batch(floes, domain, pair_cap, bins)
+    pairs, sides0 = nb.pairs, nb.sides
+    tc = two_cross_dispatch(*nb.two_cross_args())
+    fast_ok = pairs.valid & tc.ok
+    fast_regions = _fast_regions(tc, fast_ok)
+    f_force, f_fp, f_rec = _region_forces(
+        consts, dt, vals, sides0, pairs.shift, fast_regions, fast_ok,
+    )
+
+    # slow path (multi-region contacts)
+    slow = _slow_path(floes, nb, tc, pair_cap, clip_cap, retry=False)
+    sides1 = _gather_sides(floes, nb.q_table, slow.i, slow.j)
+    s_force, s_fp, s_rec = _region_forces(
+        consts, dt, vals, sides1, slow.shift, slow.regions,
+        slow.valid & (slow.regions.total_area > 0),
+    )
+
+    def rows(i, j, s, force, fp, rec, base_valid, shift):
+        R = force.shape[1]
+        ri_ = fp - s.cent_i[:, None, :]
+        trq = ri_[..., 0] * force[..., 1] - ri_[..., 1] * force[..., 0]
+        nonzero = torch.sum(torch.abs(force), dim=-1) > 0
+        out_valid = base_valid[:, None] & nonzero
+
+        def tile(x):
+            return x[:, None].expand(x.shape[0], R).reshape(-1)
+
+        # partner-side mirror rows (floe-floe only): force point moved to
+        # the partner's unshifted periodic frame, torque about its centroid
+        fp_j = fp - shift[:, None, :]
+        rj_ = fp_j - s.cent_j[:, None, :]
+        trq_j = rj_[..., 0] * (-force[..., 1]) - rj_[..., 1] * (-force[..., 0])
+        m_valid = out_valid & s.is_floe_j[:, None]
+        cat = torch.cat
+        return {
+            "i": cat([tile(i), tile(j)]),
+            "j": cat([tile(_encode_partner(j, N)), tile(i)]),
+            "fx": cat([force[..., 0].reshape(-1), -force[..., 0].reshape(-1)]),
+            "fy": cat([force[..., 1].reshape(-1), -force[..., 1].reshape(-1)]),
+            "px": cat([fp[..., 0].reshape(-1), fp_j[..., 0].reshape(-1)]),
+            "py": cat([fp[..., 1].reshape(-1), fp_j[..., 1].reshape(-1)]),
+            "torque": cat([trq.reshape(-1), trq_j.reshape(-1)]),
+            "overlap": cat([rec.reshape(-1), rec.reshape(-1)]),
+            "valid": cat([out_valid.reshape(-1), m_valid.reshape(-1)]),
+        }
+
+    rf = rows(pairs.qi, pairs.qj, sides0, f_force, f_fp, f_rec, fast_ok,
+              pairs.shift)
+    rs = rows(slow.i, slow.j, sides1, s_force, s_fp, s_rec, slow.valid,
+              slow.shift)
+    out = {k: torch.cat([rf[k], rs[k]]) for k in rf}
+    out["overflow"] = (
+        pairs.overflow
+        | (slow.n_slow > slow.valid.shape[0])
+        | torch.any(torch.where(slow.valid, slow.regions.overflow, False))
+    )
+    return out

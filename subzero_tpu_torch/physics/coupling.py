@@ -1,5 +1,5 @@
 """Ice <-> ocean/atmosphere coupling (port of
-``subzero_tpu/physics/coupling.py``; the Eulerian OA mode is not ported yet).
+``subzero_tpu/physics/coupling.py``).
 
   * one-way (ocean/atmos -> ice): sub-floe points are rotated to the world
     frame, the fields are bilinearly interpolated there (periodic seams
@@ -8,7 +8,9 @@
   * two-way (ice/atmos -> ocean): per-point ocean stresses are summed into
     (floe, window-cell) buckets, the floe area inside each covered cell is
     clipped exactly, and per-cell stress / sea-ice fraction / heatflux
-    factor are assembled on the grid (coupling.jl:1617-1680).
+    factor are assembled on the grid (coupling.jl:1617-1680);
+  * Eulerian OA mode (``CouplingSettings.eulerian``): grid-cell forcing
+    weighted by the exact ice area per cell, instead of sub-floe points.
 
 The sums onto cells are one-hot products, which are deterministic.  Call
 with ``torch.backends.cuda.matmul.allow_tf32 = False`` on the card (the
@@ -279,6 +281,103 @@ def _floe_cell_areas(floes, grid, domain, cell_cap, cx0, cy0, offs):
     return wx, wy, wxs, wys, pair_ok, w_area
 
 
+def calc_eulerian_oa_coupling(
+    floes: FloeState,
+    grid: RegRectilinearGrid,
+    domain: Domain,
+    ocean: OceanState,
+    atmos: AtmosState,
+    consts: Constants,
+    cell_cap: int,
+):
+    """Eulerian (grid-cell) OA forcing (floe_OA_forcings!,
+    eulerian_OA_code.jl:121-179): instead of sub-floe quadrature points,
+    each floe integrates drag over the grid cells it covers, weighted by the
+    exact ice area in each cell.
+
+    Atmosphere drag uses the raw atmosphere velocity (not relative to ice),
+    ocean drag is relative with the turning-angle rotation, pressure-gradient
+    and Coriolis terms use mass/area, torque arms run to the cell centers,
+    and the floe heatflux factor is the mean over covered cells.  Returns
+    the floe pool with fx_oa/fy_oa/trq_oa/hflx_factor filled in."""
+    N = floes.capacity
+    dtype = floes.verts.dtype
+    dev = floes.verts.device
+    cx0 = torch.floor((floes.centroid[:, 0] - grid.x0) / grid.dx + 0.5).long()
+    cy0 = torch.floor((floes.centroid[:, 1] - grid.y0) / grid.dy + 0.5).long()
+    half = cell_cap // 2
+    offs = torch.arange(cell_cap, device=dev) - half
+    wx, wy, wxs, wys, pair_ok, w_area = _floe_cell_areas(
+        floes, grid, domain, cell_cap, cx0, cy0, offs
+    )
+    covered = w_area > 0                                   # [N, cap, cap]
+
+    # field values at the (shifted) cell centers: flat 1-D gathers
+    NCy = grid.Ny + 1
+    flat = (wxs[:, :, None] * NCy + wys[:, None, :]).reshape(N, -1)
+
+    def at_cells(f):
+        return f.reshape(-1)[flat].reshape(N, cell_cap, cell_cap).to(dtype)
+
+    uo = at_cells(ocean.u)
+    vo = at_cells(ocean.v)
+    ua = at_cells(atmos.u)
+    va = at_cells(atmos.v)
+    hflx = at_cells(ocean.hflx_factor)
+
+    # torque arms to UNSHIFTED cell centers (periodic images stay on the
+    # floe's side of the seam)
+    lx = grid.x0 + wx.to(dtype)[:, :, None] * grid.dx - floes.centroid[:, 0, None, None]
+    ly = grid.y0 + wy.to(dtype)[:, None, :] * grid.dy - floes.centroid[:, 1, None, None]
+
+    # ice velocity at each cell center (rigid body)
+    uice = floes.u[:, None, None] - ly * floes.xi[:, None, None]
+    vice = floes.v[:, None, None] + lx * floes.xi[:, None, None]
+
+    area_safe = torch.where(floes.area > 0, floes.area, 1.0)
+    ma_ratio = torch.where(floes.area > 0, floes.mass / area_safe, 0.0)[:, None, None]
+
+    # atmosphere drag (raw atmosphere velocity - eulerian_OA_code.jl:141-143)
+    na = torch.sqrt(ua * ua + va * va)
+    fx = consts.rho_a * consts.Cd_ia * na * ua * w_area
+    fy = consts.rho_a * consts.Cd_ia * na * va * w_area
+
+    # pressure gradient (:146-147)
+    fx = fx - ma_ratio * consts.f * vo * w_area
+    fy = fy + ma_ratio * consts.f * uo * w_area
+
+    # ocean drag with turning angle (:150-155)
+    du = uo - uice
+    dv = vo - vice
+    nn = torch.sqrt(du * du + dv * dv)
+    ct, st = math.cos(consts.turn_angle), math.sin(consts.turn_angle)
+    tau_x = consts.rho_o * consts.Cd_io * nn * (ct * du - st * dv)
+    tau_y = consts.rho_o * consts.Cd_io * nn * (st * du + ct * dv)
+    fx = fx + tau_x * w_area
+    fy = fy + tau_y * w_area
+
+    # torque BEFORE Coriolis (:159-160; Coriolis acts at the centroid)
+    trq = lx * fy - ly * fx
+
+    # Coriolis (:163-164)
+    fx = fx + ma_ratio * consts.f * floes.v[:, None, None] * w_area
+    fy = fy - ma_ratio * consts.f * floes.u[:, None, None] * w_area
+
+    def csum(x):
+        return torch.sum(torch.where(covered, x, 0.0), dim=(1, 2))
+
+    ncov = torch.sum(covered.to(dtype), dim=(1, 2))
+    hflx_floe = csum(hflx) / torch.where(ncov > 0, ncov, 1.0)
+
+    act = floes.active
+    return floes._replace(
+        fx_oa=torch.where(act, csum(fx), 0.0),
+        fy_oa=torch.where(act, csum(fy), 0.0),
+        trq_oa=torch.where(act, csum(trq), 0.0),
+        hflx_factor=torch.where(act, hflx_floe, 0.0),
+    )
+
+
 def calc_two_way_coupling(
     one_way: OneWayResult,
     grid: RegRectilinearGrid,
@@ -465,7 +564,14 @@ def timestep_coupling(
     Returns (floes, ocean, overflow); overflow fires when the interpolation
     window or the two-way cell window lost a point."""
     if coupling_settings.eulerian:
-        raise NotImplementedError("Eulerian OA coupling is not ported yet")
+        # Eulerian OA mode: grid-cell forcing instead of sub-floe quadrature
+        # points.  The two-way deposition needs points, so it stays a
+        # point-path feature.
+        floes = calc_eulerian_oa_coupling(
+            floes, grid, domain, ocean, atmos, consts, cell_cap
+        )
+        overflow = torch.zeros((), dtype=torch.bool, device=floes.verts.device)
+        return floes, ocean, overflow
     # the interpolation node window reuses the two-way cell window's
     # floe-coverage guarantee; +1 node because W nodes bound W-1 cells.
     # Floes spanning a large share of the grid have no window (and no flag)

@@ -1,6 +1,7 @@
 """The port on the card: the narrow-phase CUDA kernel against its plain
-PyTorch version, the wrapper's checks, and a short run_scan that goes through
-the kernel and agrees with the CPU run.
+PyTorch version, the wrapper's checks, a short run_scan that goes through
+the kernel and agrees with the CPU run, ``pair_overlaps`` on the card against
+the CPU, and a 20-step ``run`` with a fracture pass.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs on a machine that has none, without the JAX-side
@@ -12,6 +13,9 @@ Tolerances: f32 those of tests/test_pallas_clip.py, f64 rtol 1e-9 (kernel
 vs plain); 1e-6 of each field's largest magnitude for 10 f64 steps on the
 card vs the CPU (summation order only, amplified by contact dynamics).
 """
+
+import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -33,13 +37,16 @@ from subzero_tpu_torch.geometry.clip import (
     two_cross_dispatch,
     two_cross_pairs,
 )
+from subzero_tpu_torch.physics.collisions import pair_overlaps
 from subzero_tpu_torch.settings import (
     CollisionSettings,
     CouplingSettings,
     FloeSettings,
+    FractureSettings,
+    HiblerYieldCurve,
     SubGridPointsGenerator,
 )
-from subzero_tpu_torch.simulation import Simulation, run_scan
+from subzero_tpu_torch.simulation import Simulation, run, run_scan
 
 from torch_port_helpers import (
     assert_two_cross_close,
@@ -169,3 +176,62 @@ def test_cuda_run_scan_goes_through_kernel_and_matches_cpu():
         scale = float(r.abs().max())
         assert float((g - r).abs().max()) <= 1e-6 * scale, f
     assert torch.equal(on_card.model.floes.active.cpu(), on_cpu.model.floes.active)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_overlaps_matches_cpu():
+    """After 10 steps the floes overlap: the overlap query on the card (one
+    kernel launch) lists the pairs the CPU's plain versions list, with areas
+    within 1e-6 of the largest."""
+    dev = cuda_or_skip()
+    sim, _ = run_scan(_small_sim("cpu"), 10)
+    fl, dom = sim.model.floes, sim.model.domain
+    dom_card = dataclasses.replace(
+        dom, vals=dom.vals.to(dev), velocities=dom.velocities.to(dev),
+        topography=type(dom.topography)(*(x.to(dev) for x in dom.topography)))
+    tc_kernel.reset_launch_count()
+    got = pair_overlaps(fl.to(dev), dom_card, sim.pair_cap, sim.clip_cap)
+    torch.cuda.synchronize()
+    assert tc_kernel.launch_count() == 1
+    ref = pair_overlaps(fl, dom, sim.pair_cap, sim.clip_cap)
+    valid = ref[3]
+    assert int(valid.sum()) > 0 and torch.equal(got[3].cpu(), valid)
+    assert torch.equal(got[0].cpu()[valid], ref[0][valid])
+    assert torch.equal(got[1].cpu()[valid], ref[1][valid])
+    err = (got[2].cpu()[valid] - ref[2][valid]).abs().max()
+    assert float(err) <= 1e-6 * float(ref[2][valid].max())
+    assert not bool(got[4]) and not bool(ref[4])
+
+
+@pytest.mark.cuda
+def test_cuda_run_with_a_fracture_pass():
+    """20 steps of ``run`` on the card with a fracture pass (deformation on,
+    so it calls pair_interactions) at step 10: floes are created, the pool
+    stays on the card in its dtypes and finite, the kernel is launched by
+    the steps and by the pass, and the CPU run creates the same floes."""
+    dev = cuda_or_skip()
+    frac = FractureSettings(fractures_on=True, criteria=HiblerYieldCurve(pstar=50.0),
+                            dt=10, npieces=3, deform_on=True)
+    out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        sim = _small_sim(device)
+        sim.fracture_settings, sim.n_dt, sim.seed = frac, 19, 4
+        sim.name = "test_torch_cuda"
+        id0 = int(sim.model.floes.id.max())
+        tc_kernel.reset_launch_count()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out[where] = run(sim)
+        if where == "card":
+            torch.cuda.synchronize()
+            st = out[where].run_stats
+            assert st["host_pass_count"]["fracture"] == 1
+            assert st["host_pass_launches"]["fracture"] == 1
+            assert tc_kernel.launch_count() >= st["steps"] + 1
+    fc, fh = out["card"].model.floes, out["cpu"].model.floes
+    assert all(x.is_cuda for x in fc)
+    assert [x.dtype for x in fc] == [x.dtype for x in fh]
+    assert int(fc.id.max()) > id0
+    assert torch.equal(fc.id.cpu(), fh.id) and torch.equal(fc.nverts.cpu(), fh.nverts)
+    assert bool(torch.isfinite(fc.centroid[fc.active]).all())
+    assert out["card"].run_stats["rng_state"] == out["cpu"].run_stats["rng_state"]

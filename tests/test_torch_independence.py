@@ -9,7 +9,8 @@ package, and it builds on the card unless the caller names the CPU.
   way in tests/test_torch_settings.py).
 * Every constructor, and ``convert.from_jax_state``, called without ``device`` on
   a machine without a CUDA device raises; none returns CPU tensors.  With
-  ``device="cpu"`` they build on the CPU.
+  ``device="cpu"`` they build on the CPU.  (The constructors that came with the
+  host life cycle are held the same way in tests/test_torch_entry_points.py.)
 """
 
 import os
@@ -42,7 +43,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         import subzero_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             subzero_tpu_torch.__path__, "subzero_tpu_torch.")]
-        assert len(names) >= 20, names
+        assert len(names) >= 24, names
+        for new in ("native", "io.logger", "physics.lifecycle_host"):
+            assert "subzero_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)
         import chip_smoke

@@ -3,6 +3,7 @@ setup from one seed, and run_scan of a small two-way-coupled periodic
 configuration compared step by step through ``collect`` (f64), plus a check
 that the port imports no JAX."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -201,6 +202,52 @@ def test_chip_smoke_config_mirrors_bench():
     for f in ("dt", "n_dt", "floe_settings", "coupling_settings",
               "collision_settings", "pair_cap", "cell_cap", "clip_cap", "bins"):
         assert getattr(got, f) == port_settings(getattr(ref, f)), f
+    # and with the binned broad phase: the same bins and list capacity
+    ref = bench.build_sim(400, 1e5, 2e3, bins=True)
+    got = chip_smoke.build_sim(400, 1e5, 2e3, device="cpu", dtype=torch.float32,
+                               bins=True)
+    assert got.bins == ref.bins and got.bins is not None
+    assert got.pair_cap == ref.pair_cap == 8 * ref.model.floes.capacity
+
+
+def test_chip_smoke_many_floes_mirrors_the_example():
+    """chip_smoke.build_many_floes, the port's life-cycle setup, builds what
+    examples/many_floes.py:build builds from the same floe count: the same
+    f32 pool (twice the floes), fields, modulus, every settings object, the
+    capacities and the broad phase (at 40 floes).  It differs in what it
+    states: no writers, not verbose, its own name, n_dt and seed."""
+    paths = [str(REPO), str(REPO / "examples")]
+    sys.path[:0] = paths
+    try:
+        import chip_smoke
+        import many_floes
+    finally:
+        for p in paths:
+            sys.path.remove(p)
+    ref = many_floes.build(n_dt=600, n_floes=40)
+    got = chip_smoke.build_many_floes(40, device="cpu", dtype=torch.float32, n_dt=600)
+    assert got.model.floes.capacity == ref.model.floes.capacity == 80
+    assert_fields_close(got.model.floes, ref.model.floes, rtol=0, atol_rel=0)
+    assert_fields_close(got.model.ocean, ref.model.ocean, rtol=0, atol_rel=0)
+    assert_fields_close(got.model.atmos, ref.model.atmos, rtol=0, atol_rel=0)
+    np.testing.assert_array_equal(to_np(got.model.domain.vals),
+                                  np.asarray(ref.model.domain.vals))
+    assert got.model.domain.kinds == ref.model.domain.kinds
+    assert got.consts == port_settings(ref.consts)
+    for f in ("dt", "n_dt", "floe_settings", "coupling_settings",
+              "collision_settings", "fracture_settings", "simp_settings",
+              "ridgeraft_settings", "weld_settings", "interleave_ridge_raft",
+              "pair_cap", "cell_cap", "clip_cap", "bins"):
+        assert getattr(got, f) == port_settings(getattr(ref, f)), f
+    assert got.writers is None and ref.writers is None
+    # the two settings the card-against-CPU phase changes, and nothing else
+    weak = chip_smoke.build_many_floes(40, device="cpu", dtype=torch.float32,
+                                       n_dt=600, deform=True, pstar=200.0)
+    assert weak.fracture_settings == dataclasses.replace(
+        got.fracture_settings, deform_on=True,
+        criteria=dataclasses.replace(got.fracture_settings.criteria, pstar=200.0))
+    assert all(getattr(weak, f) == getattr(got, f) for f in
+               ("floe_settings", "ridgeraft_settings", "weld_settings", "pair_cap", "bins"))
 
 
 def test_port_imports_no_jax():
