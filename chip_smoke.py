@@ -9,7 +9,9 @@ device step (collide, couple, integrate, remove) through
 many_floes_8000 (binned broad phase) configurations of ``bench.py``, and
 ``simulation.run`` with the host life cycle (fracture, ridge/raft, weld,
 fuse) on the configuration of ``examples/many_floes.py``, all built with the
-port's own host setup from seed 1.  Imports no JAX.
+port's own host setup from seed 1, and ``run`` with the output writers and
+across a checkpoint/restart on the port's ``examples`` (simple_strait,
+many_floes, restart_sim).  Imports no JAX.
 
 Phases (one JSON line each; any failure raises and the exit code is not 0):
 
@@ -54,6 +56,26 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pair_interactions) and weaker ice (so that the first pass
             fractures floes): the card against the CPU to just past the
             first fracture pass (76 steps)
+  writers   examples/simple_strait.py through the port's
+            examples.simple_strait.build (500 floes in a pool of 1 000,
+            topography, its floe, grid and initial-state writers, the floe
+            writer also writing interaction rows), f32, 201 steps of run:
+            eulerian_data and the interaction rows on the card against a CPU
+            copy at step 0 and at the end; the floe groups and grid times
+            written, the last floe group bitwise equal to the pool pulled
+            straight from the card; seconds by writer; launches by the step
+            and by the writer's pair_interactions.  Without h5py (the card's
+            machine has none) the writers' file halves keep their arrays in
+            memory and the device halves run as they do with files
+  restart   examples/many_floes.py's configuration at its width (f32): one
+            run to step 450 against a run to step 300 with initial-state and
+            checkpoint writers, restarted (device=None) from its checkpoint
+            at 300 and run on to 450: every pool field, the ocean and the
+            generator state bitwise equal (ids up to one offset), and the
+            resumed leg fractured floes; then examples/restart_sim.py (20
+            floes, f64) in three parts against one run, bitwise.  With h5py
+            through the files, without through the writers' arrays
+            (restore_simulation); seconds of restart itself
   profile   (only when named) where a shear_flow_500 step's time goes:
             step_ms with coupling or collisions off, as bench.py splits it,
             and torch.profiler's device time by operator over 20 steps
@@ -83,13 +105,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
           "many_floes_2000", "binned", "overlaps", "lifecycle",
-          "lifecycle_card_cpu")
+          "lifecycle_card_cpu", "writers", "restart")
 EXTRA_PHASES = ("profile",)
 SEED = 1
 
@@ -173,50 +196,23 @@ def build_sim(n_floes, L, dx, *, device, dtype, seed=SEED, coupling=True,
 
 def build_many_floes(n_floes, *, device, dtype, n_dt, seed=SEED, deform=False,
                      pstar=None):
-    """The port's counterpart of ``examples/many_floes.py:build``: a 2e5 m
-    open box on a 1e4 m grid, ocean u = -0.2, ``n_floes`` Voronoi floes at
-    concentration 0.8 in a pool of twice as many, dt 20, one-way coupling,
-    Hibler fracture into 3 pieces every 75 steps, ridge/raft every 150, weld
-    every 500 on a 4x4 grid; no writers.  ``pstar`` replaces the yield
-    curve's ice strength (the example keeps HiblerYieldCurve's default)."""
-    from subzero_tpu_torch.constants import Constants
-    from subzero_tpu_torch.core import (BoundaryKind, initialize_floe_field,
-                                        make_atmos, make_domain, make_grid,
-                                        make_model, make_ocean)
-    from subzero_tpu_torch.settings import (CouplingSettings, FloeSettings,
-                                            FractureSettings, HiblerYieldCurve,
-                                            RidgeRaftSettings,
-                                            SubGridPointsGenerator, WeldSettings)
-    from subzero_tpu_torch.simulation import Simulation
+    """The port's ``examples.many_floes.build`` (the configuration of
+    ``examples/many_floes.py``: a 2e5 m open box on a 1e4 m grid, ocean
+    u = -0.2, ``n_floes`` Voronoi floes at concentration 0.8 in a pool of
+    twice as many, dt 20, one-way coupling, Hibler fracture into 3 pieces
+    every 75 steps, ridge/raft every 150, weld every 500 on a 4x4 grid) with
+    what this script states: no writers, not verbose, its own name and seed,
+    the fracture pass's deformation when ``deform``, and ``pstar`` in place
+    of the yield curve's ice strength (the example keeps HiblerYieldCurve's
+    default)."""
+    from subzero_tpu_torch.examples import many_floes
 
-    kw = dict(dtype=dtype, device=device)
-    grid = make_grid(-1e5, 1e5, -1e5, 1e5, dx=1e4, dy=1e4)
-    ocean = make_ocean(grid, u=-0.2, v=0.0, temp=-1.0, **kw)
-    atmos = make_atmos(grid, u=0.0, v=0.0, temp=-3.0, **kw)
-    domain = make_domain(grid, *([BoundaryKind.OPEN] * 4), **kw)
-    fs = FloeSettings(
-        subfloe_point_generator=SubGridPointsGenerator.from_grid(grid, 2))
-    floes = initialize_floe_field(n_floes, [0.8], domain, 0.25, 0.0, fs,
-                                  rng=np.random.default_rng(seed),
-                                  N=2 * n_floes, **kw)
-    area = floes.area[floes.active].cpu().numpy()
-    modulus = 1.5e3 * (np.mean(np.sqrt(area)) + np.min(np.sqrt(area)))
-    return Simulation(
-        model=make_model(grid, ocean, atmos, domain, floes),
-        consts=Constants(E=float(modulus)),
-        dt=20,
-        n_dt=n_dt,
-        seed=seed,
-        name="chip_smoke_many_floes",
-        floe_settings=fs,
-        coupling_settings=CouplingSettings(two_way_coupling_on=False),
-        fracture_settings=FractureSettings(
-            fractures_on=True,
-            criteria=HiblerYieldCurve() if pstar is None else HiblerYieldCurve(pstar=pstar),
-            dt=75, npieces=3, deform_on=deform),
-        ridgeraft_settings=RidgeRaftSettings(ridge_raft_on=True, dt=150),
-        weld_settings=WeldSettings(weld_on=True, dts=(500,), nxs=(4,), nys=(4,)),
-    )
+    sim = many_floes.build(dtype=dtype, n_dt=n_dt, n_floes=n_floes, device=device)
+    fr = dataclasses.replace(sim.fracture_settings, deform_on=deform)
+    if pstar is not None:
+        fr = dataclasses.replace(fr, criteria=dataclasses.replace(fr.criteria, pstar=pstar))
+    return dataclasses.replace(sim, seed=seed, name="chip_smoke_many_floes",
+                               verbose=False, fracture_settings=fr)
 
 
 def fork(sim):
@@ -935,7 +931,6 @@ def count_host_syncs(fn):
     tensor, nonzero) and every blocking copy to it.  Launches through ctypes
     are not seen.  Returns (fn's result, count, the ten largest sources)."""
     import collections
-    import warnings
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -1016,8 +1011,6 @@ def lifecycle_batch_checks(sim, key, report) -> dict:
 
 
 def phase_lifecycle(dev, report):
-    import warnings
-
     from subzero_tpu_torch import native
     from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import run
@@ -1127,8 +1120,6 @@ def fracture_margins(floes, sim):
 
 
 def phase_lifecycle_card_cpu(dev, report):
-    import warnings
-
     from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import build_step, run
 
@@ -1233,6 +1224,380 @@ def phase_lifecycle_card_cpu(dev, report):
          smallest_distance_to_yield_curve=min(margin_h.values()),
          floes_with_zero_stress=n_zero, cpu_seconds_75_steps=cpu_seconds,
          kernel_launches={"step": n_before + n_step, "pair_interactions": n_pi})
+
+
+# ---------------------------------------------------------------------------
+# writers and restart
+# ---------------------------------------------------------------------------
+
+# card against a CPU copy of one state, f32: each gridded output within this
+# fraction of its largest magnitude
+EULERIAN_TOL = 1e-5
+WRITERS = ("initial_state", "floes", "grid", "checkpoint")
+
+
+def h5py_available() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def keep_in_memory(writers) -> dict:
+    """Replace each writer's file half (``write_arrays``, the h5py part) by a
+    list that keeps what it would have written; the device halves run as
+    they do with files.  Returns the lists by writer."""
+    kept = {}
+    for name in WRITERS:
+        w = getattr(writers, name)
+        if w is not None:
+            kept[name] = []
+            w.write_arrays = lambda *a, _k=kept[name]: _k.append(a)
+    return kept
+
+
+def run_settings(sim) -> dict:
+    """What ``restart`` must be handed to resume ``sim`` exactly: every
+    setting the files do not hold (the process settings and capacities)."""
+    skip = {"model", "consts", "dt", "n_dt", "name", "writers", "rng_state"}
+    return {f.name: getattr(sim, f.name) for f in dataclasses.fields(sim)
+            if f.init and f.name not in skip}
+
+
+def resume(initial, checkpoint, new_n_dt, settings, writers=None):
+    """``restart(..., device=None)`` from an initial-state and a checkpoint
+    file (paths), or without files ``restore_simulation`` from the arrays the
+    device halves handed the file halves (the lists of ``keep_in_memory``).
+    Returns (sim, last step, seconds)."""
+    from subzero_tpu_torch.io.writers import restart, restore_simulation
+
+    t0 = time.perf_counter()
+    if isinstance(initial, str):
+        sim, last = restart(initial, checkpoint, new_n_dt, writers=writers,
+                            device=None, **settings)
+    else:
+        (arrays,), (last, ckpt) = initial[0], checkpoint[-1]
+        sim = restore_simulation(arrays, ckpt, new_n_dt, writers=writers,
+                                 device=None, **settings)
+    torch.cuda.synchronize()
+    return sim, last, time.perf_counter() - t0
+
+
+def sources(files, out_dir, kept, name):
+    """Where ``resume`` reads the ``initial_state`` or the ``checkpoint``
+    writer's output: its file in ``out_dir``, or the arrays
+    ``keep_in_memory`` kept."""
+    return os.path.join(out_dir, f"{name}.h5") if files else kept[name]
+
+
+def assert_same_run(got, want, what, id_base=None) -> int:
+    """Two runs' final states bitwise equal: every pool field slot for slot,
+    the ocean and the generator state.  With ``id_base`` the ids above it
+    (floes made after a restart) may differ by one offset throughout, as
+    they do where the id counter of the run that was not restarted ran
+    ahead of the largest id left in the pool; returns that offset."""
+    fg, fw = got.model.floes, want.model.floes
+    offset = 0
+    for f, x, y in zip(fw._fields, fg, fw):
+        if id_base is not None and f in ("id", "parent_id"):
+            new = y > id_base
+            d = torch.unique((y - x)[new])
+            if d.numel() > 1 or not torch.equal(x[~new], y[~new]):
+                raise AssertionError(f"{what}: floes.{f} differs beyond one id offset")
+            offset = int(d[0]) if d.numel() else offset
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{what}: floes.{f} differs")
+    for f, x, y in zip(want.model.ocean._fields, got.model.ocean, want.model.ocean):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: ocean.{f} differs")
+    if got.run_stats["rng_state"] != want.run_stats["rng_state"]:
+        raise AssertionError(f"{what}: the generator states differ")
+    return offset
+
+
+def eulerian_card_vs_cpu(model, dims) -> dict:
+    """eulerian_data on the card against a CPU copy of the same pool: each
+    output within EULERIAN_TOL of its largest magnitude.  A cell whose ice
+    area is roundoff (a floe edge grazing it: below 1e-8 of the cell on
+    either side) divides each floe quantity by that roundoff area, so its
+    averages are noise on both sides; there an average is held weighted by
+    the ice fraction (its share of the cell), as tests/test_torch_writers.py
+    holds the port to the JAX package.  Returns the largest relative
+    difference by output."""
+    from subzero_tpu_torch.io.writers import eulerian_data
+
+    card = eulerian_data(model.floes, model.ocean, model.grid, dims)
+    cpu = eulerian_data(model.floes.to("cpu"), model.ocean, model.grid, dims)
+    fc, fh = card["si_frac_grid"], cpu["si_frac_grid"]
+    real = (np.minimum(fc, fh) > 1e-8) | (np.maximum(fc, fh) == 0)
+    weight = np.where(real, 1.0, np.maximum(fc, fh))
+    worst = {}
+    for k, r in cpu.items():
+        scale = float(np.abs(r).max())
+        err = float((np.abs(card[k] - r) * weight).max())
+        worst[k] = err / scale if scale > 0 else err
+        if not err <= EULERIAN_TOL * scale:
+            raise AssertionError(f"eulerian_data {k}: card vs CPU {err} at scale {scale}")
+    if not fh.any():
+        raise AssertionError("eulerian_data: no ice on the grid")
+    worst["roundoff_ice_cells"] = int((~real).sum())
+    return worst
+
+
+def phase_writers(dev, report):
+    from subzero_tpu_torch.examples import simple_strait
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.simulation import run
+
+    n_dt = 200  # the example runs 5 000
+    files = h5py_available()
+    stats = {"seconds": dict.fromkeys(WRITERS, 0.0), "events": dict.fromkeys(WRITERS, 0),
+             "write_data_seconds": 0.0, "launches": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = simple_strait.build(n_dt=n_dt, out_dir=tmp, device=dev)
+        w = sim.writers
+        # the one difference from the example: the floe writer's interaction
+        # rows, so that the writer path launches the kernel (pair_interactions)
+        w.floes.outputs = tuple(w.floes.outputs) + ("interactions",)
+        kept = None if files else keep_in_memory(w)
+        last = {}
+
+        for name in WRITERS:
+            wr = getattr(w, name)
+            if wr is None:
+                continue
+
+            def timed(*a, _write=wr.write, _name=name, **kw):
+                if _name == "floes":  # the pool as the writer was handed it
+                    last["tstep"], last["floes"] = a[0], type(a[1])(*(x.clone() for x in a[1]))
+                t0 = time.perf_counter()
+                _write(*a, **kw)
+                stats["seconds"][_name] += time.perf_counter() - t0
+                stats["events"][_name] += 1
+
+            wr.write = timed
+        write_data = w.write_data
+
+        def timed_write_data(*a, **kw):
+            torch.cuda.synchronize()  # the steps queued before are not the writers'
+            l0, t0 = two_cross.launch_count(), time.perf_counter()
+            write_data(*a, **kw)
+            torch.cuda.synchronize()
+            stats["write_data_seconds"] += time.perf_counter() - t0
+            stats["launches"] += two_cross.launch_count() - l0
+
+        w.write_data = timed_write_data
+
+        m0 = sim.model
+        at_step_0 = {"eulerian_data": eulerian_card_vs_cpu(m0, w.grid.dims),
+                     "interaction_rows": overlaps_card_vs_cpu(sim, False, sim.bins,
+                                                              full_ok=True)}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # overflow and pool-full notes
+            torch.cuda.synchronize()
+            two_cross.reset_launch_count()
+            t0 = time.perf_counter()
+            sim = run(sim)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = two_cross.launch_count()
+        st = sim.run_stats
+        check_finite(sim)
+        at_last_step = {"eulerian_data": eulerian_card_vs_cpu(sim.model, w.grid.dims),
+                        "interaction_rows": overlaps_card_vs_cpu(sim, False, sim.bins,
+                                                                 full_ok=True)}
+        writer_launches = stats["launches"]
+        step_launches = launches - writer_launches - sum(st["host_pass_launches"].values())
+        if step_launches != st["steps"] or writer_launches != stats["events"]["floes"]:
+            raise AssertionError(
+                f"kernel launches: step {step_launches} in {st['steps']} steps, writer "
+                f"{writer_launches} in {stats['events']['floes']} floe-writer events")
+        by_path = report["launches_by_path"]
+        by_path["run step (writers)"] = step_launches
+        by_path["pair_interactions (FloeOutputWriter)"] = writer_launches
+
+        # what the writers wrote: the steps, and at the last floe-writer event
+        # every dataset bitwise equal to the pool pulled straight from the card
+        want = {k: v.cpu().numpy()[last["floes"].active.cpu().numpy()]
+                for k, v in last["floes"]._asdict().items()}
+        floe_steps, grid_times = list(range(0, n_dt + 1, w.floes.interval)), [0.0, 100.0, 200.0]
+        if files:
+            import h5py
+
+            with h5py.File(os.path.join(tmp, "floes.h5"), "r") as f:
+                steps = sorted(int(k) for k in f.keys())
+                got = {k: v[()] for k, v in f[str(last["tstep"])].items()}
+            with h5py.File(os.path.join(tmp, "gridded_data.nc"), "r") as f:
+                times = list(f["time"][()])
+        else:
+            steps = [a[0] for a in kept["floes"]]
+            got = kept["floes"][-1][1]
+            times = [float(a[0]) for a in kept["grid"]]
+        if steps != floe_steps or times != grid_times or last["tstep"] != n_dt:
+            raise AssertionError(f"floe groups {steps}, grid times {times}")
+        fields = [k for k in w.floes.outputs if k != "interactions"]
+        for k in fields:
+            if not np.array_equal(got[k], want[k]) or got[k].dtype != want[k].dtype:
+                raise AssertionError(f"floe writer at step {n_dt}: {k} differs from the pool")
+        if set(got) != set(fields) | {"interactions", "num_inters"}:
+            raise AssertionError(f"floe writer datasets {sorted(got)}")
+        if got["interactions"].shape[1] != 8 or len(got["num_inters"]) != len(want["id"]):
+            raise AssertionError("floe writer: interaction datasets of the wrong shape")
+    examples, ex_counts = run_every_example(files)
+    by_path["run step (every example, 21 steps each)"] = ex_counts["step_launches"]
+    host_s = sum(st["host_pass_seconds"].values())
+    writer_s = stats["write_data_seconds"]
+    emit("writers", config="examples/simple_strait.py, 500 floes in a pool of 1 000, "
+         "floe writer with interactions", dtype="float32", n_dt=n_dt, steps=st["steps"],
+         files=files, seconds=seconds, step_ms=1e3 * seconds / st["steps"],
+         device_steps_seconds=seconds - host_s - writer_s,
+         write_data_seconds=writer_s, write_seconds_by_writer=stats["seconds"],
+         write_data_other_seconds=writer_s - sum(stats["seconds"].values()),
+         writer_events=stats["events"], host_pass_seconds=st["host_pass_seconds"],
+         kernel_launches={"step": step_launches, "pair_interactions_writer": writer_launches,
+                          "host_passes": st["host_pass_launches"]},
+         eulerian_tolerance=EULERIAN_TOL, card_vs_cpu_step_0=at_step_0,
+         card_vs_cpu_last_step=at_last_step, floe_groups=steps, grid_times=times,
+         interaction_rows_last_event=int(got["interactions"].shape[0]),
+         n_overflow=sim.n_overflow, active_floes=int(sim.model.floes.count()),
+         every_example_21_steps=examples, every_example_launches=ex_counts)
+
+
+EXAMPLES = ("uniform_flow", "shear_flow", "simple_strait", "converge_diverge_flow",
+            "forcing_contained_floes", "moving_bounds", "many_floes", "restart_sim")
+
+
+def run_every_example(files, n_dt=20) -> dict:
+    """Each of the port's single-device examples built by its own ``build``
+    with its own arguments (out_dir given, device None: the card) and run
+    n_dt steps with its writers, not verbose: the state finite, the kernel
+    launched once a step, and every writer that fires at step 0 wrote.
+    Returns the figures by example and the launch counts."""
+    import importlib
+
+    counts = {"steps": 0, "step_launches": 0, "pass_launches": 0}
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"subzero_tpu_torch.examples.{name}")
+            out_dir = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            sim = mod.build(out_dir=out_dir)
+            if isinstance(sim, tuple):  # restart_sim: (sim, settings)
+                sim = sim[0]
+            setup_s = time.perf_counter() - t0
+            sim.n_dt, sim.verbose = n_dt, False
+            kept = None if files else keep_in_memory(sim.writers)
+            t0 = time.perf_counter()
+            sim = run_and_count(sim, counts)
+            torch.cuda.synchronize()
+            check_finite(sim)
+            fired = [w for w in WRITERS if getattr(sim.writers, w) is not None]
+            wrote = (sorted(f for f in os.listdir(out_dir)) if files
+                     else sorted(w for w in fired if kept[w]))
+            if len(wrote) != len(fired):
+                raise AssertionError(f"example {name}: writers {fired} wrote {wrote}")
+            figures[name] = {"floes": int(sim.model.floes.count()),
+                             "dtype": str(sim.model.floes.verts.dtype).split(".")[-1],
+                             "host_setup_seconds": setup_s,
+                             "run_seconds": time.perf_counter() - t0, "wrote": wrote}
+    if counts["step_launches"] != counts["steps"]:
+        raise AssertionError(f"examples: kernel launches {counts}")
+    return figures, counts
+
+
+def run_and_count(sim, counts, **kw):
+    """``run(sim)``; adds its steps and its kernel launches (from the step
+    and from the host passes, each counted from 0 just before) to
+    ``counts``."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.simulation import run
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        two_cross.reset_launch_count()
+        sim = run(sim, **kw)
+        n = two_cross.launch_count()
+    passes = sum(sim.run_stats["host_pass_launches"].values())
+    counts["steps"] += sim.run_stats["steps"]
+    counts["step_launches"] += n - passes
+    counts["pass_launches"] += passes
+    return sim
+
+
+def phase_restart(dev, report):
+    from subzero_tpu_torch.examples import restart_sim
+    from subzero_tpu_torch.io.writers import (CheckpointOutputWriter,
+                                              InitialStateOutputWriter, OutputWriters)
+
+    files = h5py_available()
+    counts = {"steps": 0, "step_launches": 0, "pass_launches": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the life cycle: one run to step 450 against a run to step 300 that
+        # checkpoints every 150 steps, restarted from its last checkpoint
+        n_ckpt, n_end = 300, 450
+        base = build_many_floes(1000, device=dev, dtype=torch.float32, n_dt=n_end)
+        settings = run_settings(base)
+        t0 = time.perf_counter()
+        cont = run_and_count(fork(base), counts)
+        cont_s = time.perf_counter() - t0
+        leg = fork(base)
+        leg.n_dt = n_ckpt
+        leg.writers = OutputWriters(
+            initial_state=InitialStateOutputWriter(dir=tmp, overwrite=True),
+            checkpoint=CheckpointOutputWriter(150, dir=tmp, overwrite=True))
+        kept = None if files else keep_in_memory(leg.writers)
+        run_and_count(leg, counts)
+        resumed, last, restart_s = resume(
+            sources(files, tmp, kept, "initial_state"),
+            sources(files, tmp, kept, "checkpoint"), n_end - n_ckpt, settings)
+        if last != n_ckpt or resumed.model.floes.verts.device.type != torch.device(dev).type:
+            raise AssertionError(f"restarted at {last} on {resumed.model.floes.verts.device}")
+        id_base = int(resumed.model.floes.id.max())
+        resumed = run_and_count(resumed, counts, start_tstep=last)
+        fractured = resumed.run_stats["host_pass_count"]["fracture"]
+        new_ids = int((resumed.model.floes.id > id_base).sum())
+        if not fractured or not new_ids:
+            raise AssertionError(f"the resumed leg made no floe ({fractured} fracture passes)")
+        offset = assert_same_run(resumed, cont, "many_floes restarted at 300", id_base)
+        life = {"n_dt": n_end, "restarted_at": last, "restart_seconds": restart_s,
+                "continuous_seconds": cont_s, "fracture_passes_after_restart": fractured,
+                "floes_made_after_restart": new_ids, "id_offset": offset,
+                "active_floes": int(cont.model.floes.count()),
+                "max_floe_id": int(cont.model.floes.id.max()), "bitwise_equal": True}
+
+        # the restart_sim example at its width: three parts against one run
+        out = [os.path.join(tmp, f"run_{i + 1}") for i in range(restart_sim.N_PART_SIM)]
+        part, _ = restart_sim.build(out_dir=out[0], device=dev)
+        settings = run_settings(part)
+        one = fork(part)
+        one.writers = None
+        one.n_dt = restart_sim.N_PART_SIM * restart_sim.N_DT_PART
+        one = run_and_count(one, counts)
+        kept = first = None if files else keep_in_memory(part.writers)
+        part = run_and_count(part, counts)
+        seconds = []
+        for prev, nxt in zip(out[:-1], out[1:]):
+            # the initial state lives with part 1, the checkpoint with the last
+            writers = restart_sim._writers(nxt)
+            nxt_kept = None if files else keep_in_memory(writers)
+            part, last, s = resume(sources(files, out[0], first, "initial_state"),
+                                   sources(files, prev, kept, "checkpoint"),
+                                   restart_sim.N_DT_PART, settings, writers)
+            seconds.append(s)
+            part = run_and_count(part, counts, start_tstep=last)
+            kept = nxt_kept
+        assert_same_run(part, one, "restart_sim in three parts")
+        example = {"parts": restart_sim.N_PART_SIM, "steps_a_part": restart_sim.N_DT_PART,
+                   "restart_seconds": seconds, "active_floes": int(one.model.floes.count()),
+                   "bitwise_equal": True}
+    if counts["step_launches"] != counts["steps"]:
+        raise AssertionError(f"kernel launches: step {counts['step_launches']} in "
+                             f"{counts['steps']} steps")
+    report["launches_by_path"]["run step (restart)"] = counts["step_launches"]
+    emit("restart", files=files,
+         config="examples/many_floes.py, 1000 floes in a pool of 2000 (f32); "
+         "examples/restart_sim.py, 20 floes (f64)",
+         many_floes=life, restart_sim=example, kernel_launches=counts)
 
 
 def step_ms(sim, n_steps) -> float:
@@ -1355,6 +1720,10 @@ def main(argv=None) -> int:
         phase_lifecycle(dev, report)
     if "lifecycle_card_cpu" in phases:
         phase_lifecycle_card_cpu(dev, report)
+    if "writers" in phases:
+        phase_writers(dev, report)
+    if "restart" in phases:
+        phase_restart(dev, report)
     if "profile" in phases:
         phase_profile(dev)
     if opts.parent and report.get("parent_batches"):

@@ -1,0 +1,70 @@
+"""Convergent/divergent ocean flow.
+
+Port of the reference's examples/converge_diverge_flow.jl: a striped
+u-profile (converging then diverging) drives 50 floes on a coarse grid.
+"""
+
+import numpy as np
+import torch
+
+from ..constants import Constants
+from ..core import (
+    BoundaryKind,
+    initialize_floe_field,
+    make_atmos,
+    make_domain,
+    make_grid,
+    make_model,
+    make_ocean,
+)
+from ..io import (
+    CheckpointOutputWriter,
+    FloeOutputWriter,
+    InitialStateOutputWriter,
+    OutputWriters,
+)
+from ..settings import FloeSettings
+from ..simulation import Simulation, run
+from .common import modulus_from_floes
+
+
+def build(dtype=torch.float32, n_dt=3000, out_dir=None, device=None):
+    kw = dict(dtype=dtype, device=device)
+    Lx = Ly = 1e5
+    grid = make_grid(0.0, Lx, 0.0, Ly, dx=1e4, dy=1e4)
+    # u(x): 0.1..0.6 then 0.5..0.1 (converge_diverge_flow.jl:15-22)
+    uvels = np.concatenate([np.arange(0.1, 0.65, 0.1), np.arange(0.5, 0.05, -0.1)])
+    u_field = np.broadcast_to(uvels[:, None], (grid.Nx + 1, grid.Ny + 1))
+    ocean = make_ocean(grid, u=u_field, v=0.0, temp=0.0, **kw)
+    atmos = make_atmos(grid, u=0.0, v=0.0, temp=-1.0, **kw)
+    domain = make_domain(grid, *([BoundaryKind.PERIODIC] * 4), **kw)
+    fs = FloeSettings()
+    floes = initialize_floe_field(
+        50, [0.8], domain, 0.25, 0.0, fs, rng=np.random.default_rng(1), **kw,
+    )
+    model = make_model(grid, ocean, atmos, domain, floes)
+    writers = None
+    if out_dir:
+        writers = OutputWriters(
+            initial_state=InitialStateOutputWriter(dir=out_dir, overwrite=True),
+            floes=FloeOutputWriter(50, dir=out_dir, overwrite=True),
+            checkpoint=CheckpointOutputWriter(1000, dir=out_dir, overwrite=True),
+        )
+    return Simulation(
+        model=model,
+        consts=Constants(E=modulus_from_floes(floes)),
+        dt=20,
+        n_dt=n_dt,
+        verbose=True,
+        floe_settings=fs,
+        writers=writers,
+    )
+
+
+if __name__ == "__main__":
+    import time
+
+    sim = build(out_dir="output/converge_diverge")
+    t0 = time.time()
+    run(sim)
+    print(f"ran in {time.time() - t0:.2f}s")

@@ -5,8 +5,8 @@ collisions -> moving walls -> coupling (at its cadence) -> integration ->
 periodic wrap -> removal/dissolution.  ``tstep`` is a Python int, so the
 coupling cadence is a branch on the host.  ``run_scan`` runs device steps
 only; ``run`` adds the host life cycle at its cadences (ridging/rafting,
-fracture, welding, smoothing, fusing), the callback, duck-typed writers and
-the logger.  The writer classes themselves are not ported yet.
+fracture, welding, smoothing, fusing), the callback, the output writers
+(``io.writers``) and the logger.
 """
 
 from __future__ import annotations
@@ -62,9 +62,8 @@ class Simulation:
     simp_settings: SimplificationSettings = SimplificationSettings()
     ridgeraft_settings: RidgeRaftSettings = RidgeRaftSettings()
     weld_settings: WeldSettings = WeldSettings()
-    # duck-typed output writers: ``.floes`` / ``.grid`` / ``.checkpoint``
-    # (each None or with an ``.interval``), ``write_data(sim, tstep, floes,
-    # ocean, domain, rng_state=...)`` and ``close()``
+    # io.writers.OutputWriters (or None): run calls its write_data at each
+    # writer interval and close at the end
     writers: Any = None
     # saved numpy Generator state (bit_generator.state dict) applied at the
     # start of run(), so a resumed run continues the exact RNG stream

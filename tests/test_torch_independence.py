@@ -43,8 +43,15 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         import subzero_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             subzero_tpu_torch.__path__, "subzero_tpu_torch.")]
-        assert len(names) >= 24, names
-        for new in ("native", "io.logger", "physics.lifecycle_host"):
+        assert len(names) >= 45, names
+        for new in ("native", "io.logger", "physics.lifecycle_host", "io.writers",
+                    "tools.conservation", "tools.scenarios", "tools.compare",
+                    "tools.fixtures", "tools.mat_convert", "tools.analyze_floe",
+                    "tools.plotting", "examples.common", "examples.uniform_flow",
+                    "examples.shear_flow", "examples.simple_strait",
+                    "examples.converge_diverge_flow", "examples.forcing_contained_floes",
+                    "examples.moving_bounds", "examples.many_floes",
+                    "examples.restart_sim"):
             assert "subzero_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)
