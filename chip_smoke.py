@@ -9,9 +9,10 @@ device step (collide, couple, integrate, remove) through
 many_floes_8000 (binned broad phase) configurations of ``bench.py``, and
 ``simulation.run`` with the host life cycle (fracture, ridge/raft, weld,
 fuse) on the configuration of ``examples/many_floes.py``, all built with the
-port's own host setup from seed 1, and ``run`` with the output writers and
+port's own host setup from seed 1, ``run`` with the output writers and
 across a checkpoint/restart on the port's ``examples`` (simple_strait,
-many_floes, restart_sim).  Imports no JAX.
+many_floes, restart_sim), and ``parallel.run_decomp`` as rank processes
+(examples/distributed_shear_flow.py).  Imports no JAX.
 
 Phases (one JSON line each; any failure raises and the exit code is not 0):
 
@@ -76,6 +77,18 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             floes, f64) in three parts against one run, bitwise.  With h5py
             through the files, without through the writers' arrays
             (restore_simulation); seconds of restart itself
+  decomp    parallel/decomp.py as rank processes of this script on the card
+            (several ranks share one card through gloo: NCCL refuses two
+            ranks on one GPU): examples/distributed_shear_flow.py at its
+            width (500 floes, f32, 4 x-slabs, 500 steps; the single-device
+            run of the same build after it), the kernel on a rank's
+            halo-extended pool against its plain version, card against CPU
+            ranks (f64, 20 steps), decomposed (1-D and 2 x 2) against the
+            single-device step (f64, 5 steps), two runs with fracture
+            bitwise equal with every rank's pool hashed after each host
+            pass, many_floes_8000's field over 4 slabs (20 steps); then one
+            rank through nccl (D = 1) against the single-device run, and
+            four ranks through nccl where there are four cards
   profile   (only when named) where a shear_flow_500 step's time goes:
             step_ms with coupling or collisions off, as bench.py splits it,
             and torch.profiler's device time by operator over 20 steps
@@ -112,7 +125,7 @@ import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
           "many_floes_2000", "binned", "overlaps", "lifecycle",
-          "lifecycle_card_cpu", "writers", "restart")
+          "lifecycle_card_cpu", "writers", "restart", "decomp")
 EXTRA_PHASES = ("profile",)
 SEED = 1
 
@@ -1600,6 +1613,658 @@ def phase_restart(dev, report):
          many_floes=life, restart_sim=example, kernel_launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# decomp: parallel/decomp.py as rank processes on the card
+# ---------------------------------------------------------------------------
+
+DECOMP_RANKS = 4
+DECOMP_TIMEOUT = 420      # seconds for the gloo ranks' parts, start-up included
+# n_overflow of the JAX package's run_decomp on examples/distributed_shear_flow.py
+# (4 slabs, 500 floes, f32, 500 steps) on an 8-device virtual CPU mesh:
+# tests/jax_decomp_reference.py
+JAX_DSF_N_OVERFLOW = 0
+DECOMP_EXAMPLE_STEPS = 500   # the example's own n_dt
+# decomposed against single-device: tests/test_parallel.py:178-186 (si_frac :184)
+VS_SINGLE_TOL = {"centroid": dict(rtol=0, atol=1e-4), "u": dict(rtol=1e-4, atol=1e-10),
+                 "v": dict(rtol=1e-4, atol=1e-10), "xi": dict(rtol=1e-4, atol=1e-12),
+                 "height": dict(rtol=1e-9, atol=0)}
+VS_SINGLE_SI_FRAC = dict(rtol=1e-4, atol=1e-10)
+
+
+def decomp_launch(world, backend, parts, out_dir, timeout, one_card_a_rank=False):
+    """Start ``world`` rank processes of this script (``--decomp-rank``) on a
+    process group of ``backend`` and wait for them; a rank that fails or does
+    not end within ``timeout`` seconds kills the others and fails the phase.
+    Returns each rank's results."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    spec = os.path.join(out_dir, f"{backend}{world}.json")
+    with open(spec, "w") as f:
+        json.dump({"backend": backend, "parts": parts, "out_dir": out_dir}, f)
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r))
+        if not one_card_a_rank:
+            env["CUDA_VISIBLE_DEVICES"] = "0"   # every rank on the one card
+        logs.append(os.path.join(out_dir, f"{backend}{world}.rank{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--decomp-rank", spec],
+                stdout=log, stderr=subprocess.STDOUT, env=env))
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
+                tails = "\n---\n".join(open(f).read()[-4000:] for f in logs)
+                raise RuntimeError(f"decomp ranks ({backend}, {world}) ended with "
+                                   f"{codes} (None: killed at the time limit):\n{tails}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{backend}{world}.result{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def decomp_rank(spec_path: str) -> int:
+    """One rank process of the decomp phase: joins the process group the
+    environment names (env://), runs the named parts on every rank, and
+    writes this rank's results.  Any failure raises: the exit code is not 0."""
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.parallel import multihost
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.set_num_threads(2)
+    multihost.initialize(backend=spec["backend"])
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": spec["backend"], "world": dist.get_world_size(),
+           "device": str(multihost.rank_device(None))}
+    for part in spec["parts"]:
+        t0 = time.perf_counter()
+        out[part] = DECOMP_PARTS[part](spec)
+        out[part]["part_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(spec["out_dir"],
+                           f"{spec['backend']}{out['world']}.result{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _example(dtype, n_dt, device, pair_rows=None, **over):
+    """The port's examples/shear_flow.py field, as distributed_shear_flow
+    builds it: 500 floes, two-way coupling, writers kept in memory."""
+    from subzero_tpu_torch.examples.shear_flow import build
+
+    sim = build(dtype=dtype, n_dt=n_dt, out_dir="unused", n_floes=500, device=device)
+    kept = keep_in_memory(sim.writers)
+    if pair_rows is not None:
+        sim.pair_cap = pair_rows * sim.model.floes.capacity
+    return dataclasses.replace(sim, **over) if over else sim, kept
+
+
+def _ids(floes):
+    return sorted(floes.id[floes.active].tolist())
+
+
+def _timed_decomp(sim, dec):
+    """run_decomp on every rank with this rank's kernel count from 0;
+    returns (sim, seconds, launches)."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.parallel import run_decomp
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.synchronize()
+        two_cross.reset_launch_count()
+        t0 = time.perf_counter()
+        sim = run_decomp(sim, dec)
+        launches = two_cross.launch_count()
+        torch.cuda.synchronize()
+    return sim, time.perf_counter() - t0, launches
+
+
+def _check_launches(sim, launches, what):
+    st = sim.run_stats
+    host = sum(st["host_pass_launches"].values())
+    if launches != st["steps"] + host:
+        raise AssertionError(f"{what}: {launches} kernel launches, {st['steps']} steps "
+                             f"and {host} from host-pass queries")
+    return {"step": launches - host, "host_pass_queries": host, "steps": st["steps"]}
+
+
+class _CaptureExtended:
+    """Keeps the last halo-extended pool a rank's step hands
+    timestep_collisions (owned_rows set: the run's last step, whose floes are
+    in contact), to hold the kernel against its plain version on it."""
+
+    def __init__(self):
+        from subzero_tpu_torch.physics import collisions
+
+        self.mod, self.orig, self.args = collisions, collisions.timestep_collisions, None
+
+    def __enter__(self):
+        def wrapped(floes, domain, consts, dt, cls, pair_cap, clip_cap=16, bins=None,
+                    owned_rows=None):
+            if owned_rows is not None:
+                self.args = (floes, domain, pair_cap, owned_rows)
+            return self.orig(floes, domain, consts, dt, cls, pair_cap, clip_cap, bins,
+                             owned_rows=owned_rows)
+
+        self.mod.timestep_collisions = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.timestep_collisions = self.orig
+        return False
+
+
+def part_example(spec):
+    """examples/distributed_shear_flow.py at its width on every rank: 500
+    floes, f32, 4 x-slabs, 500 steps, floe writer every 50 steps (rank 0);
+    then the single-device ``run`` of the same build on rank 0 while the
+    others wait."""
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.parallel import make_decomp, multihost
+    from subzero_tpu_torch.parallel.decomp import comm_bytes_per_step
+    from subzero_tpu_torch.physics.collisions import narrow_phase_batch
+    from subzero_tpu_torch.simulation import run
+
+    dev = multihost.rank_device(None)
+    rank = dist.get_rank()
+    sim, kept = _example(torch.float32, DECOMP_EXAMPLE_STEPS, dev)
+    fl0 = sim.model.floes
+    ids0, mass0 = _ids(fl0), float(fl0.mass[fl0.active].double().sum())
+    dec = make_decomp(fl0, sim.model.domain)
+    bound = comm_bytes_per_step(sim, dec)
+    with _CaptureExtended() as cap:
+        sim, seconds, launches = _timed_decomp(sim, dec)
+    counts = _check_launches(sim, launches, f"rank {rank}")
+    check_finite(sim)
+    fl1 = sim.model.floes
+    ids1, mass1 = _ids(fl1), float(fl1.mass[fl1.active].double().sum())
+    st = sim.run_stats
+    # no floe is lost: a floe leaves the pool only by fusing, and each fused
+    # floe (a new id) takes the place of two or more
+    gone, new = sorted(set(ids0) - set(ids1)), sorted(set(ids1) - set(ids0))
+    if (gone or new) and not st["host_pass_count"]["fuse"] or len(gone) < 2 * len(new):
+        raise AssertionError(f"floes {gone} left the pool, {new} came, in "
+                             f"{st['host_pass_count']['fuse']} fuse passes")
+    if sim.n_overflow != JAX_DSF_N_OVERFLOW:
+        raise AssertionError(f"n_overflow {sim.n_overflow}, the JAX package's is "
+                             f"{JAX_DSF_N_OVERFLOW}")
+    written = {k: len(v) for k, v in kept.items()}
+    if written != ({"initial_state": 1, "floes": DECOMP_EXAMPLE_STEPS // 50 + 1}
+                   if rank == 0 else
+                   {"initial_state": 0, "floes": 0}):
+        raise AssertionError(f"rank {rank} wrote {written}")
+    steps = st["steps"]
+    out = {"seconds": seconds, "ms_per_step": 1e3 * seconds / steps, "steps": steps,
+           "kernel_launches": counts, "n_overflow": sim.n_overflow,
+           "capacities": {"local_cap": dec.local_cap, "halo_cap": dec.halo_cap,
+                          "mig_cap": dec.mig_cap, "margin": dec.margin,
+                          "local_cap_at_end": st["local_cap"]},
+           "comm_per_step": {k: v / steps for k, v in st["comm"].items()},
+           "comm_bytes_per_step_bound": bound,
+           "host_pass_count": st["host_pass_count"], "segments": st["segments"],
+           "active": [len(ids0), len(ids1)], "ids_gone": gone, "ids_new": new,
+           "mass": [mass0, mass1], "written": written}
+    if rank == 0:
+        ext, domain, pair_cap, owned = cap.args
+        nb = narrow_phase_batch(ext, domain, pair_cap, None, owned)
+        out["b1_on_extended_pool"] = dict(
+            check_main_path_batch(nb, "decomp_extended_pool", {}),
+            ext_cap=ext.capacity, owned_rows=owned)
+        if not all(v is True for v in out["b1_on_extended_pool"]["f32_bitwise_equal"].values()):
+            raise AssertionError(f"B1 on the extended pool: {out['b1_on_extended_pool']}")
+    dist.barrier()
+    if rank == 0:  # the single-device run of the same build, the card to itself
+        single, _ = _example(torch.float32, DECOMP_EXAMPLE_STEPS, dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = run(single)
+            torch.cuda.synchronize()
+        s1 = time.perf_counter() - t0
+        out["single_device"] = {"seconds": s1, "ms_per_step": 1e3 * s1 / steps,
+                                "n_overflow": single.n_overflow,
+                                "active": int(single.model.floes.count())}
+    dist.barrier()
+    return out
+
+
+def _field_diffs(got, want, tol, what):
+    """Row for row: integer and boolean fields equal, each floating field
+    within ``tol`` of its largest magnitude; returns the relative diffs."""
+    out = {}
+    for f, x, y in zip(want._fields, got, want):
+        x = x.detach().cpu()
+        if x.is_floating_point():
+            out[f] = max_rel_diff(x, y)
+            if not out[f] <= tol:
+                raise AssertionError(f"{what}: {f} differs by {out[f]} of its largest")
+        elif not torch.equal(x, y.detach().cpu()):
+            raise AssertionError(f"{what}: {f} differs")
+    return out
+
+
+def part_card_cpu(spec):
+    """The example's field in f64, 20 steps over the 4 ranks: on the card,
+    then on the CPU (same processes, gloo without staging); rank 0 holds the
+    gathered pools row for row and the ocean against each other."""
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.parallel import make_decomp, multihost, run_decomp
+
+    runs = {}
+    for where, dev in (("card", multihost.rank_device(None)), ("cpu", "cpu")):
+        sim, _ = _example(torch.float64, 19, dev, writers=None)
+        dec = make_decomp(sim.model.floes, sim.model.domain)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            runs[where] = (run_decomp(sim, dec), time.perf_counter() - t0)
+    (card, card_s), (cpu, cpu_s) = runs["card"], runs["cpu"]
+    out = {"steps": card.run_stats["steps"], "seconds": {"card": card_s, "cpu": cpu_s},
+           "n_overflow": [card.n_overflow, cpu.n_overflow]}
+    if dist.get_rank() == 0:
+        out["floes_max_rel_diff"] = _field_diffs(card.model.floes, cpu.model.floes,
+                                                 CARD_CPU_TOL, "card vs CPU floes")
+        oc, oh = card.model.ocean, cpu.model.ocean
+        frac = torch.maximum(oc.si_frac.cpu(), oh.si_frac)
+        diffs = {}
+        for f in ("tau_x", "tau_y"):
+            # a roundoff sliver of ice divides the floe's stress: weight by it
+            g, r = getattr(oc, f).cpu(), getattr(oh, f)
+            w = torch.where(frac > 1e-8, torch.ones_like(frac), frac)
+            diffs[f] = float(((g - r) * w).abs().max()) / float(r.abs().max())
+        for f in ("si_frac", "dissolved"):
+            diffs[f] = max_rel_diff(getattr(oc, f), getattr(oh, f))
+        if not max(diffs.values()) <= CARD_CPU_TOL:
+            raise AssertionError(f"card vs CPU ocean beyond {CARD_CPU_TOL}: {diffs}")
+        out["ocean_max_rel_diff"] = diffs
+    return out
+
+
+def parallel_test_sim(kind, device):
+    """tests/test_parallel.py's configurations with the port's constructors (f64,
+    32 candidate rows a floe, where the default budget overflows):
+    ``wide`` is make_wide_sim (128 floes, an 8:1 periodic domain), ``square``
+    make_square_sim (256 floes, a 2e5 m periodic box); ``example`` is the
+    distributed example's field (examples/shear_flow.py's build) in f64."""
+    from subzero_tpu_torch.constants import Constants
+    from subzero_tpu_torch.core import (BoundaryKind, initialize_floe_field, make_atmos,
+                                        make_domain, make_grid, make_model, make_ocean)
+    from subzero_tpu_torch.settings import (CouplingSettings, FloeSettings,
+                                            SubGridPointsGenerator)
+    from subzero_tpu_torch.simulation import Simulation
+
+    kw = dict(dtype=torch.float64, device=device)
+    if kind == "example":
+        sim, _ = _example(torch.float64, 0, device, pair_rows=32, writers=None)
+        return sim
+    if kind == "wide":
+        grid = make_grid(0.0, 8e5, 0.0, 1e5, Nx=40, Ny=5)
+        u, v, n, conc, seed = 0.2, 0.0, 128, 0.45, 3
+    else:
+        grid = make_grid(0.0, 2e5, 0.0, 2e5, Nx=10, Ny=10)
+        u, v, n, conc, seed = 0.15, -0.1, 256, 0.5, 9
+    domain = make_domain(grid, *([BoundaryKind.PERIODIC] * 4), **kw)
+    fs = FloeSettings(min_floe_area=1e6,
+                      subfloe_point_generator=SubGridPointsGenerator.from_grid(grid, 2))
+    floes = initialize_floe_field(n, [conc], domain, 0.25, 0.0, fs,
+                                  rng=np.random.default_rng(seed), **kw)
+    sim = Simulation(
+        model=make_model(grid, make_ocean(grid, u=u, v=v, temp=0.0, **kw),
+                         make_atmos(grid, temp=-1.0, **kw), domain, floes),
+        consts=Constants(E=1e6), dt=20, n_dt=0, floe_settings=fs,
+        coupling_settings=CouplingSettings(two_way_coupling_on=True))
+    sim.pair_cap = 32 * sim.model.floes.capacity
+    return sim
+
+
+def part_vs_single(spec):
+    """tests/test_parallel.py's decomposed-against-single-device checks on
+    the card, f64, 5 steps: 1-D over 4 slabs on make_wide_sim's field and
+    2-D over 2 x 2 on make_square_sim's, matched by id against the
+    single-device step with that test's tolerances.  On the example's own
+    field (``example_field_1d``, reported and not checked) the JAX package's
+    decomposition leaves xi 1.45e-4 from the single device at a floe whose
+    xi is 1e-6 (tests/jax_decomp_reference.py --vs-single): the per-element
+    rtol holds on that test's fields, not on every field."""
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.parallel import (build_decomp_step, distribute, distribute_2d,
+                                            gather, make_decomp, make_decomp_2d, multihost)
+    from subzero_tpu_torch.simulation import build_step
+
+    dev = multihost.rank_device(None)
+    out = {}
+    for name, kind, make, place in (
+        ("1d_4_slabs", "wide", lambda fl, dom: make_decomp(fl, dom), distribute),
+        ("2d_2x2", "square", lambda fl, dom: make_decomp_2d(fl, dom, n_dev=(2, 2)),
+         distribute_2d),
+        ("example_field_1d", "example", lambda fl, dom: make_decomp(fl, dom), distribute),
+    ):
+        base = parallel_test_sim(kind, dev)
+        m = base.model
+        step = build_step(base)
+        f1, o1, d1 = m.floes, m.ocean, m.domain
+        for k in range(5):
+            f1, o1, d1, ov = step(f1, o1, d1, k)
+            if bool(ov):
+                raise AssertionError(f"{name}: the single-device step overflowed")
+        sim = parallel_test_sim(kind, dev)
+        dec = make(sim.model.floes, sim.model.domain)
+        fd, od, dd = place(sim.model.floes, sim.model.domain, dec), m.ocean, m.domain
+        dstep = build_decomp_step(sim, dec)
+        overflow = []
+        for k in range(5):
+            fd, od, dd, ov = dstep(fd, od, dd, k)
+            overflow.append(ov)
+        if any(overflow):
+            raise AssertionError(f"{name}: a decomposed step overflowed")
+        g = gather(fd, dec)
+        if dist.get_rank() != 0:
+            continue
+        a, b = _by_id(f1), _by_id(g)
+        if not torch.equal(a.id, b.id):
+            raise AssertionError(f"{name}: the pools hold other ids")
+        err = {}
+        for f, tol in VS_SINGLE_TOL.items():
+            x, y = getattr(b, f).double(), getattr(a, f).double()
+            bad = (x - y).abs() > tol["atol"] + tol["rtol"] * y.abs()
+            err[f] = float(((x - y).abs() / (y.abs() + 1e-300)).max())
+            if bool(bad.any()) and kind != "example":
+                raise AssertionError(f"{name}: {f} beyond {tol}: {err[f]}")
+        s_d, s_1 = od.si_frac.cpu().double(), o1.si_frac.cpu().double()
+        if kind != "example" and bool(((s_d - s_1).abs() > VS_SINGLE_SI_FRAC["atol"]
+                                       + VS_SINGLE_SI_FRAC["rtol"] * s_1.abs()).any()):
+            raise AssertionError(f"{name}: si_frac beyond {VS_SINGLE_SI_FRAC}")
+        err["si_frac"] = float(((s_d - s_1).abs() / (s_1.abs() + 1e-300)).max())
+        out[name] = {"config": {"wide": "tests/test_parallel.py make_wide_sim",
+                                "square": "tests/test_parallel.py make_square_sim",
+                                "example": "examples/shear_flow.py's field, f64, "
+                                           "unchecked"}[kind],
+                     "max_rel_err": err, "local_cap": dec.local_cap,
+                     "halo_cap": dec.halo_cap, "floes": int(g.count())}
+    return out
+
+
+def part_determinism(spec):
+    """Two runs of 51 steps of the example's field with a fracture pass every
+    25 steps (weak ice, so that pieces are made and slabs regrow): bitwise
+    equal gathered pools; in the first run, after every host pass, each
+    rank's hash of the pool it redistributes is gathered and all are equal
+    (every rank runs the host passes alike, without a broadcast)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from subzero_tpu_torch.parallel import decomp, make_decomp, multihost
+    from subzero_tpu_torch.settings import FractureSettings, HiblerYieldCurve
+
+    dev = multihost.rank_device(None)
+    fr = FractureSettings(fractures_on=True, criteria=HiblerYieldCurve(pstar=1e-10, c=20.0),
+                          dt=25, npieces=2)
+    hashes = []
+    orig = decomp._dec_distribute
+
+    def hashed(floes, domain, dec, extra=None):
+        h = hashlib.sha256()
+        for x in floes:
+            h.update(x.detach().cpu().numpy().tobytes())
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, h.hexdigest())
+        if len(set(every)) != 1:
+            raise AssertionError(f"ranks hold different pools after a host pass: {every}")
+        hashes.append(every[0][:16])
+        return orig(floes, domain, dec, extra=extra)
+
+    runs = []
+    for k in range(2):
+        sim, _ = _example(torch.float32, 50, dev, writers=None, fracture_settings=fr)
+        dec = make_decomp(sim.model.floes, sim.model.domain)
+        decomp._dec_distribute = hashed if k == 0 else orig
+        try:
+            runs.append(_timed_decomp(sim, dec)[0])
+        finally:
+            decomp._dec_distribute = orig
+    a, b = runs
+    for name in ("floes", "ocean"):
+        for f, x, y in zip(getattr(a.model, name)._fields, getattr(a.model, name),
+                           getattr(b.model, name)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}.{f} differs between two runs")
+    st = a.run_stats
+    if st["host_pass_count"]["fracture"] != 2 or len(hashes) < 3:
+        raise AssertionError(f"host passes {st['host_pass_count']}, hashes {len(hashes)}")
+    return {"steps": st["steps"], "bitwise_equal": True,
+            "host_pass_count": st["host_pass_count"],
+            "pools_hashed": len(hashes), "distinct_pools_hashed": len(set(hashes)),
+            "local_cap": [dec.local_cap, st["local_cap"]],
+            "active": int(a.model.floes.count())}
+
+
+def part_scale(spec):
+    """20 steps of many_floes_8000's field (chip_smoke.build_sim(8000, 4e5,
+    2e3), dense broad phase: owned_rows is dense-only) over 4 slabs: the
+    capacities, this rank's B1 rows, its peak device memory, overflow."""
+    from subzero_tpu_torch.parallel import make_decomp, multihost
+    from subzero_tpu_torch.physics import collisions
+
+    dev = multihost.rank_device(None)
+    sim = build_sim(8000, 4e5, 2e3, device=dev, dtype=torch.float32)
+    sim.n_dt = 19
+    dec = make_decomp(sim.model.floes, sim.model.domain)
+    rows = []
+    orig = collisions.two_cross_dispatch
+
+    def counted(*args):
+        rows.append((int(args[4].shape[0]), args[8]))
+        return orig(*args)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    collisions.two_cross_dispatch = counted
+    try:
+        sim, seconds, launches = _timed_decomp(sim, dec)
+    finally:
+        collisions.two_cross_dispatch = orig
+    counts = _check_launches(sim, launches, "scale")
+    check_finite(sim)
+    return {"steps": sim.run_stats["steps"], "seconds": seconds,
+            "ms_per_step": 1e3 * seconds / sim.run_stats["steps"],
+            "capacities": {"local_cap": dec.local_cap, "halo_cap": dec.halo_cap,
+                           "mig_cap": dec.mig_cap, "margin": dec.margin,
+                           "ext_cap": dec.local_cap + 2 * dec.halo_cap},
+            "b1_rows": rows[0][0], "b1_valid_rows_first_last": [
+                int(rows[0][1].sum()), int(rows[-1][1].sum())],
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "n_overflow": sim.n_overflow, "kernel_launches": counts,
+            "active": int(sim.model.floes.count())}
+
+
+def part_nccl1(spec):
+    """The example's field, f32, with D = 1 through nccl (world size 1: the
+    collectives run, no halo), against the single-device step.  Step by
+    step, 50 steps: each decomposed step, started from the single-device
+    state, lands on the single-device step within 1e-6 of each field's
+    largest magnitude (the integrator's fields: or of the forces they
+    integrate, ``tendency_floor``); the pools differ in capacity (local_cap
+    against the user's), so the one-hot sums may add in another order.  Then
+    the free runs (``run_decomp`` and ``run``, 50 steps), whose differences
+    are reported: a fuse pass on states that differ in the last bits gives
+    fused floes that differ in more."""
+    from subzero_tpu_torch.parallel import (build_decomp_step, distribute, make_decomp,
+                                            multihost)
+    from subzero_tpu_torch.simulation import build_step, run
+
+    dev = multihost.rank_device(None)
+    base, _ = _example(torch.float32, 49, dev, writers=None)
+    m = base.model
+    step = build_step(base)
+    states = [(m.floes, m.ocean, m.domain)]
+    for k in range(50):
+        f, o, d, _ = step(*states[-1], k)
+        states.append((f, o, d))
+    dec = make_decomp(m.floes, m.domain)
+    dstep = build_decomp_step(fork(base), dec)
+    worst, bitwise_steps = {}, 0
+    for k in range(50):
+        f, o, d = states[k]
+        fd, od, _, _ = dstep(distribute(f, d, dec), o, d, k)
+        same = True
+        # the decomposition marks a fuse partner by id, the single device by row
+        want_f = states[k + 1][0]
+        fw = want_f.fuse_with
+        want_f = want_f._replace(fuse_with=torch.where(
+            fw >= 0, want_f.id[fw.clamp(min=0).long()], -1).to(fw.dtype))
+        want_f = _by_id(want_f)
+        floor = tendency_floor(want_f, float(base.dt), CARD_CPU_TOL)
+        for name, got, want in (("floes", _by_id(fd), want_f),
+                                ("ocean", od, states[k + 1][1])):
+            for fld, x, y in zip(want._fields, got, want):
+                key = f"{name}.{fld}"
+                if x.is_floating_point():
+                    # each element within 1e-6 of the field's largest
+                    # magnitude, or of the forces it integrates
+                    scale = float(y.abs().max())
+                    allowed = CARD_CPU_TOL * scale + (floor[fld] if name == "floes" and
+                                                      fld in floor else 0.0)
+                    ratio = float(((x - y).abs() / allowed).max()) if scale > 0 else float(
+                        (x - y).abs().max())
+                    worst[key] = max(worst.get(key, 0.0), ratio)
+                    if not ratio <= 1.0:
+                        raise AssertionError(f"nccl D = 1, step {k}: {key} at {ratio} of "
+                                             "its tolerance")
+                    same &= torch.equal(x, y)
+                elif not torch.equal(x, y):
+                    raise AssertionError(f"nccl D = 1, step {k}: {key} differs")
+        bitwise_steps += same
+    sim = fork(base)
+    sim, seconds, launches = _timed_decomp(sim, dec)
+    counts = _check_launches(sim, launches, "nccl D = 1")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        single = run(fork(base))
+    got, want = _by_id(sim.model.floes), _by_id(single.model.floes)
+    free = {}
+    if torch.equal(got.id, want.id):
+        free = {f: max_rel_diff(x, y) for f, x, y in zip(want._fields, got, want)
+                if x.is_floating_point()}
+    return {"step_by_step": {"steps": 50, "tolerance": CARD_CPU_TOL,
+                             "worst_share_of_tolerance": worst,
+                             "bitwise_equal_steps": bitwise_steps},
+            "free_run": {"steps": sim.run_stats["steps"], "seconds": seconds,
+                         "same_ids": bool(torch.equal(got.id, want.id)),
+                         "max_rel_diff": free},
+            "kernel_launches": counts, "local_cap": dec.local_cap,
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+            "comm": sim.run_stats["comm"]}
+
+
+def tendency_floor(ref, dt, rel) -> dict:
+    """Absolute floors (per floe) of the integrator's accelerations and of
+    the velocities and strain they step, as tests/test_torch_slice.py's
+    ``_tendency_atol`` derives them: p_dudt is (fx_oa + collision force) /
+    mass and the two can cancel, so it is held to ``rel`` of the forces'
+    largest magnitudes over the mass; u adds 1.5 dt p_dudt; likewise v, and
+    xi with the torques over the moment; the strain is xi times the floe's
+    geometry."""
+    def floor(a, b, denom):
+        d = torch.where(denom > 0, denom, torch.ones_like(denom))
+        return rel * (float(a.abs().max()) + float(b.abs().max())) / d
+
+    cf = ref.collision_force
+    acc = {"p_dudt": floor(ref.fx_oa, cf[:, 0], ref.mass),
+           "p_dvdt": floor(ref.fy_oa, cf[:, 1], ref.mass),
+           "p_dxidt": floor(ref.trq_oa, ref.collision_trq, ref.moment)}
+    out = dict(acc, u=1.5 * dt * acc["p_dudt"], v=1.5 * dt * acc["p_dvdt"],
+               xi=1.5 * dt * acc["p_dxidt"])
+    xi = ref.xi.abs()
+    per_xi = ref.strain.abs().amax((1, 2)) / torch.where(xi > 0, xi, torch.ones_like(xi))
+    out["strain"] = (out["xi"] * per_xi)[:, None, None]
+    return out
+
+
+def _by_id(floes):
+    """The active rows of a pool, ordered by floe id."""
+    act = torch.nonzero(floes.active).squeeze(1)
+    order = act[torch.argsort(floes.id[act])]
+    return type(floes)(*(x[order] for x in floes))
+
+
+DECOMP_PARTS = {"example": part_example, "card_cpu": part_card_cpu,
+                "vs_single": part_vs_single, "determinism": part_determinism,
+                "scale": part_scale, "nccl1": part_nccl1}
+
+
+def phase_decomp(dev, report):
+    import torch.distributed as dist
+
+    backends = {"nccl": dist.is_nccl_available(), "gloo": dist.is_gloo_available()}
+    emit("decomp_backends", **backends,
+         note="several ranks on one card run on gloo: NCCL refuses two ranks of one "
+              "communicator on the same GPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = decomp_launch(DECOMP_RANKS, "gloo", ["example", "card_cpu", "vs_single",
+                                                      "determinism", "scale"],
+                              tmp, DECOMP_TIMEOUT)
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl1,) = decomp_launch(1, "nccl", ["nccl1"], tmp, 240)
+        nccl_s = time.perf_counter() - t0
+        four = None
+        if torch.cuda.device_count() >= DECOMP_RANKS:
+            four = decomp_launch(DECOMP_RANKS, "nccl", ["example"], tmp, 300,
+                                 one_card_a_rank=True)
+    ex = [r["example"] for r in ranks]
+    r0 = ranks[0]
+    per_rank = [e["kernel_launches"] for e in ex]
+    report["launches_by_path"]["decomp step (per rank)"] = [c["step"] for c in per_rank]
+    report["launches_by_path"]["decomp host-pass queries (per rank)"] = [
+        c["host_pass_queries"] for c in per_rank]
+    emit("decomp", config="examples/distributed_shear_flow.py: 500 floes, f32, two-way "
+         "coupling, 4 x-slabs, 500 steps, 4 gloo ranks sharing the card",
+         rank_processes_seconds=gloo_s, nccl_process_seconds=nccl_s,
+         devices=[r["device"] for r in ranks],
+         example={"rank0": ex[0],
+                  "ms_per_step_by_rank": [e["ms_per_step"] for e in ex],
+                  "kernel_launches_by_rank": per_rank,
+                  "comm_per_step_by_rank": [e["comm_per_step"] for e in ex]},
+         card_cpu=r0["card_cpu"], vs_single=r0["vs_single"],
+         determinism=r0["determinism"],
+         scale={"by_rank": [{k: r["scale"][k] for k in
+                             ("b1_rows", "b1_valid_rows_first_last", "peak_memory_gib",
+                              "ms_per_step", "kernel_launches", "capacities")}
+                            for r in ranks],
+                "steps": r0["scale"]["steps"], "n_overflow": r0["scale"]["n_overflow"],
+                "active": r0["scale"]["active"]},
+         nccl_world_size_1=nccl1["nccl1"],
+         four_cards=(None if four is None else [r["example"] for r in four]))
+    if four is None:
+        print(f"decomp: the four-card NCCL run did not run: this machine has "
+              f"{torch.cuda.device_count()} CUDA device(s) and it needs "
+              f"{DECOMP_RANKS}, one a rank", flush=True)
+
+
 def step_ms(sim, n_steps) -> float:
     from subzero_tpu_torch.simulation import run_scan
 
@@ -1665,6 +2330,8 @@ def main(argv=None) -> int:
                     "materialised ring batches: time it on the same batches")
     ap.add_argument("--parent-worker", metavar="FILE", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--decomp-rank", metavar="FILE", default=None,
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     phases = [p for p in opts.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -1677,6 +2344,8 @@ def main(argv=None) -> int:
         return 1
     if opts.parent_worker:
         return parent_worker(opts.parent_worker)
+    if opts.decomp_rank:
+        return decomp_rank(opts.decomp_rank)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
@@ -1724,6 +2393,9 @@ def main(argv=None) -> int:
         phase_writers(dev, report)
     if "restart" in phases:
         phase_restart(dev, report)
+    if "decomp" in phases:
+        torch.cuda.empty_cache()  # the rank processes share the card
+        phase_decomp(dev, report)
     if "profile" in phases:
         phase_profile(dev)
     if opts.parent and report.get("parent_batches"):

@@ -67,7 +67,8 @@ def _sq(x):
 
 
 def find_candidate_pairs(
-    floes: FloeState, domain: Domain, pair_cap: int, bins: tuple | None = None
+    floes: FloeState, domain: Domain, pair_cap: int, bins: tuple | None = None,
+    owned_rows: int | None = None,
 ) -> PairArrays:
     """Broad phase: bounding-circle tests over all i<j pairs plus walls and
     topography (potential_interaction, collisions.jl:705-710), with the
@@ -76,10 +77,21 @@ def find_candidate_pairs(
     ``bins``: optional static (nbx, nby, M) spatial binning parameters - when
     given, floe-floe candidates come from the bin neighbourhoods of a
     spatial bin grid (O(N * M) instead of O(N^2)); M is the per-bin floe
-    capacity."""
+    capacity.
+
+    ``owned_rows``: when the pool is a rank's local block extended with halo
+    copies (parallel/decomp.py), rows >= owned_rows are halos: pairs of two
+    halo copies are a neighbour's and are skipped, a local-halo pair is
+    owned by the local row, and halo rows take no wall or topography
+    candidate, so only the owned rows hold candidates and take the budget.
+    None = every row owned.  The binned broad phase takes a single pool
+    only."""
     if bins is not None:
+        if owned_rows is not None:
+            raise ValueError("the binned broad phase is single-pool only "
+                             "(owned_rows needs the dense broad phase)")
         return _find_candidate_pairs_binned(floes, domain, pair_cap, bins)
-    return _find_candidate_pairs_dense(floes, domain, pair_cap)
+    return _find_candidate_pairs_dense(floes, domain, pair_cap, owned_rows)
 
 
 def _rank_select_rows(mask, row_cap: int, extra_cap: int = 0):
@@ -171,7 +183,8 @@ def _wall_topo_masks(floes: FloeState, domain: Domain):
 
 
 def _find_candidate_pairs_dense(
-    floes: FloeState, domain: Domain, pair_cap: int
+    floes: FloeState, domain: Domain, pair_cap: int,
+    owned_rows: int | None = None,
 ) -> PairArrays:
     N = floes.capacity
     c = floes.centroid
@@ -202,28 +215,41 @@ def _find_candidate_pairs_dense(
     lt = iidx[:, None] < iidx[None, :]
     even = ((iidx[:, None] + iidx[None, :]) % 2) == 0
     own = (even == lt) & (iidx[:, None] != iidx[None, :])
+    if owned_rows is not None:
+        # extended pool of a rank: halo-halo pairs are skipped (the rank
+        # that owns both computes them), a local-halo pair is the local row's
+        loc_i = iidx[:, None] < owned_rows
+        loc_j = iidx[None, :] < owned_rows
+        own = torch.where(loc_i & loc_j, own, loc_i & ~loc_j)
     pair_mask = act[:, None] & act[None, :] & (dist2 < _sq(rsum)) & own
 
     fw, ft = _wall_topo_masks(floes, domain)
+    if owned_rows is not None:
+        # halo copies take no wall or topography contact (the owner does)
+        loc_rows = (iidx < owned_rows)[:, None]
+        fw = fw & loc_rows
+        ft = ft & loc_rows
     T = domain.topography.count
-    mask = torch.cat([pair_mask, fw, ft], dim=1)
+    # the row-structured list covers the NR owned rows (all N by default)
+    NR = N if owned_rows is None else owned_rows
+    mask = torch.cat([pair_mask, fw, ft], dim=1)[:NR]
     NQ = N + 4 + T
-    row_cap = max(min(pair_cap // max(N, 1), NQ), 8)
+    row_cap = max(min(pair_cap // max(NR, 1), NQ), 8)
     sel, valid, overflow, epos = _rank_select_rows(
         mask, row_cap, extra_cap=_extra_cap(N)
     )
 
-    qi = iidx[:, None].expand(N, row_cap).reshape(-1)
+    qi = iidx[:NR, None].expand(NR, row_cap).reshape(-1)
     qj = torch.clamp(sel, max=NQ - 1)
     jsafe = torch.clamp(qj, max=N - 1)
     is_ff = (qj < N).reshape(-1)
-    sxg = torch.gather(sx, 1, jsafe).reshape(-1)
-    syg = torch.gather(sy, 1, jsafe).reshape(-1)
+    sxg = torch.gather(sx[:NR], 1, jsafe).reshape(-1)
+    syg = torch.gather(sy[:NR], 1, jsafe).reshape(-1)
     shift = torch.where(is_ff[:, None], torch.stack([sxg, syg], dim=-1), 0.0)
 
-    # second-chance block: flat positions into [N, NQ]
-    evalid = epos < N * NQ
-    eps_ = torch.clamp(epos, max=N * NQ - 1)
+    # second-chance block: flat positions into [NR, NQ]
+    evalid = epos < NR * NQ
+    eps_ = torch.clamp(epos, max=NR * NQ - 1)
     ei = torch.where(evalid, eps_ // NQ, N - 1)
     ecol = torch.where(evalid, eps_ % NQ, N - 1)
     ejsafe = torch.clamp(ecol, max=N - 1)
@@ -453,17 +479,19 @@ def _q_table(floes: FloeState, domain: Domain, q_n, q_cent, dtype):
     )
 
 
-def _gather_sides(floes, q_table, i, j, row_cap=None, g=None) -> _PairSides:
+def _gather_sides(floes, q_table, i, j, row_cap=None, g=None,
+                  n_rows=None) -> _PairSides:
     """Gather both sides of a contact list.  With ``row_cap`` the first
-    N * row_cap entries are row-structured (i == k // row_cap: broadcasts)
-    and any remaining second-chance entries are gathered.  ``g``: the
-    pre-gathered ``q_table[j]`` rows."""
+    NR * row_cap entries are row-structured (i == k // row_cap: broadcasts,
+    NR = ``n_rows``, all N rows by default) and any remaining second-chance
+    entries are gathered.  ``g``: the pre-gathered ``q_table[j]`` rows."""
     N = floes.capacity
     if row_cap is not None:
-        R = N * row_cap
+        NR = N if n_rows is None else n_rows
+        R = NR * row_cap
 
         def bi(x):
-            b = x[:, None].expand((N, row_cap) + x.shape[1:]).reshape(
+            b = x[:NR, None].expand((NR, row_cap) + x.shape[1:]).reshape(
                 (R,) + x.shape[1:]
             )
             if i.shape[0] == R:
@@ -623,10 +651,11 @@ def _put_rows(x, idx, n: int):
 
 
 def _accumulate_contacts(N, i, j, s: _PairSides, pair_valid, is_ff, shift,
-                         force, fp, overlap_rec, row_cap=None):
+                         force, fp, overlap_rec, row_cap=None, n_rows=None):
     """Symmetric +F/-F accumulation of one contact list onto the floe pool
     (replaces the reference's serial reaction pass, collisions.jl:799-862).
-    With ``row_cap`` the i side is row-structured and sums by reshape.
+    With ``row_cap`` the i side of the first ``n_rows`` (default N) rows is
+    row-structured and sums by reshape.
     Returns (col_force, col_trq, stress_moments, overarea) per floe."""
     K = i.shape[0]
     fsum = torch.sum(force, dim=1)  # [K, 2]
@@ -661,8 +690,11 @@ def _accumulate_contacts(N, i, j, s: _PairSides, pair_valid, is_ff, shift,
     pay_j = torch.where(is_ff[:, None], pay_j, 0.0)
 
     if row_cap is not None:
-        R = N * row_cap
-        acc_i = torch.sum(pay_i[:R].reshape(N, row_cap, -1), dim=1)
+        NR = N if n_rows is None else n_rows
+        R = NR * row_cap
+        acc_i = torch.sum(pay_i[:R].reshape(NR, row_cap, -1), dim=1)
+        if NR < N:
+            acc_i = torch.cat([acc_i, acc_i.new_zeros((N - NR, acc_i.shape[1]))])
         if K > R:  # second-chance entries: arbitrary i
             seg_ie = torch.where(pair_valid[R:], i[R:], N)
             acc_i = acc_i + _onehot_sum(pay_i[R:], seg_ie, N)
@@ -710,7 +742,7 @@ class NarrowBatch(NamedTuple):
     q_n: torch.Tensor       # [NQ] int32
     q_table: torch.Tensor   # [NQ, 9] (_q_table)
     sides: _PairSides       # both sides of every candidate pair
-    row_cap: int            # row-structured entries are the first N * row_cap
+    row_cap: int            # row-structured entries: the first NR * row_cap
     perturb: torch.Tensor   # [PC] degeneracy-breaking offset of Q
 
     def two_cross_args(self):
@@ -727,14 +759,16 @@ def ring_batch(nb: NarrowBatch):
 
 
 def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,
-                       bins: tuple | None = None) -> NarrowBatch:
+                       bins: tuple | None = None,
+                       owned_rows: int | None = None) -> NarrowBatch:
     """Broad phase, Q pool and the pair list that timestep_collisions hands
-    to ``two_cross_dispatch``."""
+    to ``two_cross_dispatch`` (``owned_rows``: see find_candidate_pairs)."""
     N = floes.capacity
+    NR = N if owned_rows is None else owned_rows
     V = floes.max_verts
     dtype = floes.verts.dtype
     dev = floes.verts.device
-    pairs = find_candidate_pairs(floes, domain, pair_cap, bins)
+    pairs = find_candidate_pairs(floes, domain, pair_cap, bins, owned_rows)
     PC = pairs.qi.shape[0]
 
     # ---------------- Q pool: floes, 4 walls, topography --------------------
@@ -756,10 +790,11 @@ def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,
     q_table = _q_table(floes, domain, q_n, q_cent, dtype)
 
     # ---------------- both sides of every candidate pair --------------------
-    # hybrid list from find_candidate_pairs: N*row_cap row-structured entries
-    # followed by _extra_cap(N) second-chance entries
-    row_cap0 = (PC - _extra_cap(N)) // N
-    sides0 = _gather_sides(floes, q_table, pairs.qi, pairs.qj, row_cap=row_cap0)
+    # hybrid list from find_candidate_pairs: NR*row_cap row-structured
+    # entries followed by _extra_cap(N) second-chance entries
+    row_cap0 = (PC - _extra_cap(N)) // NR
+    sides0 = _gather_sides(floes, q_table, pairs.qi, pairs.qj, row_cap=row_cap0,
+                           n_rows=NR)
 
     # deterministic degeneracy-breaking perturbation, scaled to the pair
     eps_rel = 1e-9 if dtype == torch.float64 else 2e-6
@@ -881,13 +916,16 @@ def timestep_collisions(
     pair_cap: int,
     clip_cap: int = DEFAULT_CAP,
     bins: tuple | None = None,
+    owned_rows: int | None = None,
 ) -> CollisionResult:
     """timestep_collisions! (collisions.jl:734-864), batched over the pool.
 
     The slow path and its odd-parity retry branch on the host on the number
     of slow pairs (one synchronisation per step); everything else stays on
-    the device with fixed shapes."""
+    the device with fixed shapes.  ``owned_rows``: see find_candidate_pairs
+    (a rank's halo-extended pool; only the owned rows' results are used)."""
     N = floes.capacity
+    NR = N if owned_rows is None else owned_rows
     V = floes.max_verts
     dtype = floes.verts.dtype
     dev = floes.verts.device
@@ -910,13 +948,13 @@ def timestep_collisions(
             remove = remove | (act & cmp())
 
     # ---------------- fused narrow phase (fast path) ------------------------
-    nb = narrow_phase_batch(floes, domain, pair_cap, bins)
+    nb = narrow_phase_batch(floes, domain, pair_cap, bins, owned_rows)
     pairs, sides0, q_table, row_cap0 = nb.pairs, nb.sides, nb.q_table, nb.row_cap
     PC = pairs.qi.shape[0]
     i0 = pairs.qi
     j0 = pairs.qj
     pvalid0 = pairs.valid
-    R0 = N * row_cap0
+    R0 = NR * row_cap0
     # the narrow phase zeroes the rows that are not candidates (cnt 0, ok
     # False, contain 0), so nothing here masks them again
     tc = two_cross_dispatch(*nb.two_cross_args())
@@ -982,7 +1020,7 @@ def timestep_collisions(
     )
     f_acc = _accumulate_contacts(
         N, i0, j0, sides0, pvalid0, is_ff_pair0, pairs.shift,
-        f_force, f_fp, f_rec, row_cap=row_cap0,
+        f_force, f_fp, f_rec, row_cap=row_cap0, n_rows=NR,
     )
     s_acc = _accumulate_contacts(
         N, i1, j1, sides1, svalid, sides1.is_floe_j & svalid, shift1,
@@ -998,13 +1036,18 @@ def timestep_collisions(
     stress_instant = sm / ah_safe[:, None, None]
 
     # fuse / remove marks over the FULL candidate list (containment pairs
-    # included); one-sided: the pair's owner records the partner
-    fp_row = fuse_pair0[:R0].reshape(N, row_cap0)
-    fw_i = torch.amax(
-        torch.where(fp_row, j0[:R0].reshape(N, row_cap0), -1), dim=1
-    )
-    fuse_i = torch.any(fp_row, dim=1)
-    rem_i = torch.any(dom_remove_pair0[:R0].reshape(N, row_cap0), dim=1)
+    # included); one-sided: the pair's owner records the partner.  Rows past
+    # the NR owned ones hold no candidate.
+    def pad_rows(a, fill):
+        return a if NR == N else torch.cat([a, a.new_full((N - NR,), fill)])
+
+    fp_row = fuse_pair0[:R0].reshape(NR, row_cap0)
+    fw_i = pad_rows(torch.amax(
+        torch.where(fp_row, j0[:R0].reshape(NR, row_cap0), -1), dim=1
+    ), -1)
+    fuse_i = pad_rows(torch.any(fp_row, dim=1), False)
+    rem_i = pad_rows(
+        torch.any(dom_remove_pair0[:R0].reshape(NR, row_cap0), dim=1), False)
     if PC > R0:  # second-chance entries: per-floe maxima over their i
         ie = i0[R0:]
         fw_e = torch.full((N + 1,), -1, dtype=j0.dtype, device=dev).scatter_reduce(

@@ -388,8 +388,14 @@ def calc_two_way_coupling(
     floe_settings: FloeSettings,
     dt: float,
     cell_cap: int,
+    reduce_sums=None,
 ):
     """Ice/atmosphere effect on the ocean (coupling.jl:1617-1680).
+
+    ``reduce_sums``: where the pool is one rank's block of a domain
+    decomposition, a callable that takes this rank's per-cell sums [C, 3]
+    and returns their sum over every rank (parallel/decomp.py); it runs
+    before the area-weighted division, which is not linear in the sums.
 
     Returns (ocean, overflow): ``overflow`` fires when a valid sub-floe
     point falls outside its floe's cell_cap x cell_cap window, so that its
@@ -447,6 +453,8 @@ def calc_two_way_coupling(
     cell_sums = torch.einsum(
         "ncfg,nch->ghf", step1.reshape(N, cell_cap, 3, NCx), B
     ).reshape(NCx * NCy, 3)
+    if reduce_sums is not None:
+        cell_sums = reduce_sums(cell_sums)
     tau_x_cell = cell_sums[:, 0]
     tau_y_cell = cell_sums[:, 1]
     ice_area_cell = cell_sums[:, 2]
@@ -558,8 +566,10 @@ def timestep_coupling(
     floe_settings: FloeSettings,
     dt: float,
     cell_cap: int = 16,
+    reduce_sums=None,
 ):
-    """timestep_coupling! (coupling.jl:1705-1738).
+    """timestep_coupling! (coupling.jl:1705-1738).  ``reduce_sums``: see
+    calc_two_way_coupling.
 
     Returns (floes, ocean, overflow); overflow fires when the interpolation
     window or the two-way cell window lost a point."""
@@ -583,6 +593,7 @@ def timestep_coupling(
     if coupling_settings.two_way_coupling_on:
         ocean, ovf2 = calc_two_way_coupling(
             ow, grid, domain, ocean, atmos, consts, floe_settings, dt, cell_cap,
+            reduce_sums,
         )
         overflow = overflow | ovf2
     return ow.floes, ocean, overflow

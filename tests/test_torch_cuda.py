@@ -49,9 +49,11 @@ from subzero_tpu_torch.settings import (
 from subzero_tpu_torch.simulation import Simulation, run, run_scan
 
 from torch_port_helpers import (
+    Ranks,
     assert_two_cross_close,
     build_pair_list,
     cuda_or_skip,
+    free_port,
     tt,
 )
 
@@ -235,3 +237,32 @@ def test_cuda_run_with_a_fracture_pass():
     assert torch.equal(fc.id.cpu(), fh.id) and torch.equal(fc.nverts.cpu(), fh.nverts)
     assert bool(torch.isfinite(fc.centroid[fc.active]).all())
     assert out["card"].run_stats["rng_state"] == out["cpu"].run_stats["rng_state"]
+
+
+@pytest.mark.cuda
+def test_cuda_decomposition_on_two_gloo_ranks_matches_cpu_ranks(tmp_path):
+    """Two gloo rank processes share the card (NCCL refuses two ranks on one
+    GPU): 5 f64 steps of the wide configuration of tests/test_parallel.py over
+    2 slabs, halos and migrants through host memory; the gathered pool and
+    the ocean equal the same 2 ranks on the CPU within 1e-6 of each field's
+    largest magnitude, integer fields exactly."""
+    cuda_or_skip()
+    import os
+    import sys
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_decomp_worker.py")
+    port = free_port()
+    ranks = Ranks(lambda r: [sys.executable, worker, str(r), "2", str(port),
+                             str(tmp_path), "card_cpu"], 2, str(tmp_path), timeout=600)
+    got = ranks.npz("card_cpu")
+    assert ranks.rank_json("card_cpu", 1)["staging_copies"] > 0
+    for key in got.files:
+        if not key.startswith("card."):
+            continue
+        card, cpu = got[key], got["cpu." + key[5:]]
+        if np.issubdtype(card.dtype, np.floating):
+            scale = float(np.abs(cpu).max()) if cpu.size else 0.0
+            assert np.abs(card - cpu).max(initial=0.0) <= 1e-6 * scale, key
+        else:
+            np.testing.assert_array_equal(card, cpu, err_msg=key)

@@ -51,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                     "examples.shear_flow", "examples.simple_strait",
                     "examples.converge_diverge_flow", "examples.forcing_contained_floes",
                     "examples.moving_bounds", "examples.many_floes",
-                    "examples.restart_sim"):
+                    "examples.restart_sim", "parallel", "parallel.decomp",
+                    "parallel.multihost", "examples.distributed_shear_flow"):
             assert "subzero_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)

@@ -7,8 +7,12 @@ port on CPU tensors, which take its plain PyTorch versions.
 
 import ctypes
 import dataclasses
+import json
+import os
 import shutil
+import socket
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -303,3 +307,69 @@ def assert_ocean_close(got, ref, rtol=1e-9, atol_rel=1e-9, what="ocean."):
             scale = float(np.max(np.abs(r))) if r.size else 0.0
             np.testing.assert_allclose(g, r, rtol=rtol, atol=atol_rel * scale + 1e-300,
                                        err_msg=what + f)
+
+
+# ---------------------------------------------------------------------------
+# rank processes of the decomposition tests
+# ---------------------------------------------------------------------------
+
+def free_port():
+    """A free TCP port on localhost for a process group's rendezvous."""
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class Ranks:
+    """Rank processes started together; ``wait`` returns when all have
+    exited 0, and fails (killing the others) at the first that does not, or
+    at the time limit: no rank's failure is caught."""
+
+    def __init__(self, cmd, world, out_dir, env=None, timeout=600):
+        self.out_dir, self.timeout, self.done = out_dir, timeout, False
+        self.logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
+        self.procs = []
+        for r in range(world):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    cmd(r), stdout=log, stderr=subprocess.STDOUT,
+                    env=(env or {}).get(r, rank_env())))
+
+    def wait(self):
+        deadline = time.monotonic() + self.timeout
+        while not self.done:
+            codes = [p.poll() for p in self.procs]
+            if all(c == 0 for c in codes):
+                self.done = True
+                break
+            if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
+                self.kill()
+                tails = [open(f).read()[-3000:] for f in self.logs]
+                pytest.fail(f"rank exit codes {codes}:\n" + "\n---\n".join(tails))
+            time.sleep(0.2)
+        return self
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    def npz(self, name):
+        self.wait()
+        return np.load(os.path.join(self.out_dir, f"{name}.npz"))
+
+    def rank_json(self, name, rank):
+        self.wait()
+        with open(os.path.join(self.out_dir, f"{name}.rank{rank}.json")) as f:
+            return json.load(f)
+
+
+def rank_env():
+    """The environment of a rank process: the repo importable, one OpenMP
+    thread (the ranks share the cores), JAX's platform pin dropped."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+    env.pop("JAX_PLATFORMS", None)
+    return env
