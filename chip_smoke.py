@@ -5,10 +5,11 @@ Builds the narrow-phase CUDA kernel from ``subzero_tpu_torch/csrc`` and the
 native host clip library from ``subzero_tpu_torch/native``, holds the kernel
 against its plain PyTorch version, and drives the port on the card: the
 device step (collide, couple, integrate, remove) through
-``simulation.run_scan`` on the shear_flow_500, many_floes_2000 and
-many_floes_8000 (binned broad phase) configurations of ``bench.py``, and
-``simulation.run`` with the host life cycle (fracture, ridge/raft, weld,
-fuse) on the configuration of ``examples/many_floes.py``, all built with the
+``simulation.run_scan`` on the five configurations of ``bench.py`` (through
+``subzero_tpu_torch.bench``, 500 to 32 000 floes) and the conservation
+scenarios in f32, and ``simulation.run`` with the host life cycle
+(fracture, ridge/raft, weld, fuse) on the configuration of
+``examples/many_floes.py``, all built with the
 port's own host setup from seed 1, ``run`` with the output writers and
 across a checkpoint/restart on the port's ``examples`` (simple_strait,
 many_floes, restart_sim), and ``parallel.run_decomp`` as rank processes
@@ -89,11 +90,32 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pass, many_floes_8000's field over 4 slabs (20 steps); then one
             rank through nccl (D = 1) against the single-device run, and
             four ranks through nccl where there are four cards
+  bench     subzero_tpu_torch.bench's five configurations (bench.py's:
+            shear_flow_500, many_floes_2000, 8000, 16000 and 32000) as the
+            bench runs them, with one timed run where the bench takes the
+            best of four, without its phase split: floes and candidate
+            pairs equal to the JAX field's, end state finite and no floe
+            lost, one kernel launch a step; two 20-step runs of
+            many_floes_8000 bitwise equal; the kernel against its plain
+            version, and its times, at the 16k and 32k batches; the contact
+            sums (collisions._segment_sum) card against CPU, bitwise, at the
+            32k pool's rows; the bench's JSON line
+  f32_drift tests/test_f32_drift.py's gate through the kernel: head_on and
+            three_floes, 5 000 f32 steps each (one process a scenario, both
+            at once), drift within the JAX bounds
   profile   (only when named) where a shear_flow_500 step's time goes:
             step_ms with coupling or collisions off, as bench.py splits it,
             and torch.profiler's device time by operator over 20 steps
+  e2e_shear_flow  (only when named) tools/e2e_shear_flow.py through the
+            port's tools.e2e_shear_flow: 5 000 steps of run with the floe
+            writer, 16 candidate rows a floe; fails on a step over capacity
+  lifecycle_walltime  (only when named) tools/lifecycle_walltime.py through
+            the port's tools.lifecycle_walltime: weld, smooth, a fracture of
+            5% of the pool and fuse on the 8 016-floe pool pulled from the
+            card, each against many_floes_8000's step at its cadence
 
-Then a {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
+Then a line with each phase's seconds, a {"kernels": [...]} line, the
+nvidia-smi name/power-limit line, and
 last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py                      # every phase
@@ -125,8 +147,9 @@ import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
           "many_floes_2000", "binned", "overlaps", "lifecycle",
-          "lifecycle_card_cpu", "writers", "restart", "decomp")
-EXTRA_PHASES = ("profile",)
+          "lifecycle_card_cpu", "writers", "restart", "bench", "f32_drift",
+          "decomp")
+EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime")
 SEED = 1
 
 # kernel vs plain, f32: the tolerances of tests/test_pallas_clip.py (cnt and
@@ -145,66 +168,17 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 # ---------------------------------------------------------------------------
 # configurations
 # ---------------------------------------------------------------------------
 
-def build_sim(n_floes, L, dx, *, device, dtype, seed=SEED, coupling=True,
-              collisions=True, bins=False):
-    """The port's counterpart of ``bench.build_sim(n_floes, L, dx, bins=)``:
-    periodic box, shear ocean, Voronoi floes at concentration 0.8 and mean
-    height 0.25, E from the floe areas, dt 20, two-way coupling on; dense
-    broad phase, or with ``bins`` the binned one (``_auto_bins`` of the
-    field and 8 candidate rows a floe)."""
-    from subzero_tpu_torch.constants import Constants
-    from subzero_tpu_torch.core import (BoundaryKind, initialize_floe_field,
-                                        make_atmos, make_domain, make_grid,
-                                        make_model, make_ocean)
-    from subzero_tpu_torch.settings import (CollisionSettings,
-                                            CouplingSettings, FloeSettings,
-                                            SubGridPointsGenerator)
-    from subzero_tpu_torch.simulation import Simulation, _auto_bins
+def build_sim(n_floes, L, dx, **kw):
+    """``subzero_tpu_torch.bench.build_sim``: the port's counterpart of
+    ``bench.build_sim(n_floes, L, dx, bins=)`` (imported when called: the
+    --parent worker imports an older checkout's package)."""
+    from subzero_tpu_torch.bench import build_sim
 
-    kw = dict(dtype=dtype, device=device)
-    grid = make_grid(0.0, L, 0.0, L, dx=dx, dy=dx)
-    ny = grid.Ny + 1
-    half = ny // 2 + 1
-    uvels = np.concatenate([np.linspace(0, 0.5, half), np.linspace(0.5, 0, ny - half)])
-    u_field = np.broadcast_to(uvels[None, :], (grid.Nx + 1, ny))
-    ocean = make_ocean(grid, u=u_field, v=0.0, temp=0.0, **kw)
-    atmos = make_atmos(grid, u=0.0, v=0.0, temp=-1.0, **kw)
-    domain = make_domain(grid, *([BoundaryKind.PERIODIC] * 4), **kw)
-    fs = FloeSettings(
-        min_floe_area=1e6,
-        subfloe_point_generator=SubGridPointsGenerator.from_grid(grid, 2),
-    )
-    floes = initialize_floe_field(n_floes, [0.8], domain, 0.25, 0.0, fs,
-                                  rng=np.random.default_rng(seed), **kw)
-    area = floes.area[floes.active].cpu().numpy()
-    modulus = 1.5e3 * (np.mean(np.sqrt(area)) + np.min(np.sqrt(area)))
-    sim = Simulation(
-        model=make_model(grid, ocean, atmos, domain, floes),
-        consts=Constants(E=float(modulus)),
-        dt=20,
-        n_dt=0,
-        floe_settings=fs,
-        coupling_settings=CouplingSettings(coupling_on=coupling,
-                                           two_way_coupling_on=True),
-        collision_settings=CollisionSettings(collisions_on=collisions),
-        bins=None,
-    )
-    if bins:
-        sim.bins = _auto_bins(sim.model)
-        sim.pair_cap = 8 * sim.model.floes.capacity
-    return sim
+    return build_sim(n_floes, L, dx, **kw)
 
 
 def build_many_floes(n_floes, *, device, dtype, n_dt, seed=SEED, deform=False,
@@ -518,6 +492,15 @@ def check_finite(sim) -> None:
                 raise AssertionError(f"{name}.{f} is not finite")
 
 
+def same_state(a, b, what) -> None:
+    """Two runs' floes and ocean equal to the bit."""
+    for name in ("floes", "ocean"):
+        ta, tb = getattr(a.model, name), getattr(b.model, name)
+        for f, x, y in zip(ta._fields, ta, tb):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {name}.{f} differs between two runs")
+
+
 def run_timed(sim, n_steps):
     """run_scan of n_steps on the card, launch counts reset just before;
     returns the advanced sim and its numbers."""
@@ -675,11 +658,7 @@ def phase_determinism(dev):
     sim = build_sim(500, 1e5, 2e3, device=dev, dtype=torch.float32)
     a, _ = run_scan(fork(sim), 50)
     b, _ = run_scan(fork(sim), 50)
-    for name in ("floes", "ocean"):
-        ta, tb = getattr(a.model, name), getattr(b.model, name)
-        for f, x, y in zip(ta._fields, ta, tb):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{name}.{f} differs between two runs")
+    same_state(a, b, "shear_flow_500")
     emit("determinism", config="shear_flow_500", dtype="float32", n_steps=50,
          bitwise_equal=True)
 
@@ -2265,6 +2244,203 @@ def phase_decomp(dev, report):
               f"{DECOMP_RANKS}, one a rank", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# bench, f32 drift and the host-pass / end-to-end tools
+# ---------------------------------------------------------------------------
+
+# the JAX package's fields (BENCH_r05.json): active floes and valid candidate
+# pairs at step 0; the port builds the same fields from the same seed
+JAX_BENCH_COUNTS = {"shear_flow_500": (509, 1878), "many_floes_2000": (2000, 7124),
+                    "many_floes_8000": (8016, 28165), "many_floes_16000": (15988, 56052),
+                    "many_floes_32000": (31954, 112694)}
+BITWISE_STEPS = 20
+# one timed run after the warm-up (the bench takes the best of 4): this phase
+# checks the configurations, `python -m subzero_tpu_torch.bench` times them
+BENCH_REPS = 1
+
+
+def segment_sum_card_vs_cpu(dev, N=32000) -> dict:
+    """collisions._segment_sum, the contact sums, on the card against the
+    CPU on the same rows: the 32k pool's K = 8.5 N rows, f32 and f64, about
+    a tenth dropped (idx >= N).  Both add each floe's rows in their order,
+    so they agree to the bit.  Returns the card's time a call."""
+    from subzero_tpu_torch.physics.collisions import _segment_sum
+
+    g = torch.Generator().manual_seed(SEED)
+    K = 17 * N // 2
+    out = {"K": K, "N": N}
+    for dtype in (torch.float32, torch.float64):
+        pay = torch.randn(K, 7, generator=g, dtype=dtype)
+        idx = torch.randint(0, N + N // 10, (K,), generator=g)
+        pay_d, idx_d = pay.to(dev), idx.to(dev)
+        if not torch.equal(_segment_sum(pay_d, idx_d, N).cpu(), _segment_sum(pay, idx, N)):
+            raise AssertionError(f"_segment_sum ({dtype}): the card and the CPU differ")
+        out[str(dtype).split(".")[-1]] = {
+            "bitwise_equal": True,
+            "ms": median_ms(lambda: _segment_sum(pay_d, idx_d, N))}
+    return out
+
+
+def phase_bench(dev, report):
+    """``subzero_tpu_torch.bench``'s configurations in this process, checked:
+    the JAX field's counts, a finite end state with no floe lost, one kernel
+    launch a step; two runs of many_floes_8000 bitwise equal; the kernel
+    against its plain version at the 16k and 32k batches.  Prints the
+    bench's JSON line from one timed run a configuration, without bench.py's
+    phase split (``profile`` splits the step in turns;
+    ``python -m subzero_tpu_torch.bench`` times as bench.py does)."""
+    from subzero_tpu_torch import bench
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.physics.collisions import narrow_phase_batch
+    from subzero_tpu_torch.simulation import run_scan
+
+    detail = {"device": {"name": torch.cuda.get_device_name(0),
+                         "nvidia_smi": bench.nvidia_smi()}}
+    setup, kernel, bitwise = {}, {}, None
+    for name, cfg in bench.CONFIGS.items():
+        t0 = time.perf_counter()
+        sim = bench.build_sim(cfg["n"], cfg["L"], bench.DX, bins=cfg["bins"], device=dev)
+        setup[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        two_cross.reset_launch_count()
+        r = bench.measure(sim, cfg["n_steps"], reps=BENCH_REPS)
+        launches = two_cross.launch_count()
+        want = (1 + BENCH_REPS) * cfg["n_steps"]
+        if (r["n_floes"], r["pairs_per_step"]) != JAX_BENCH_COUNTS[name]:
+            raise AssertionError(f"{name}: floes and pairs {r['n_floes']}, "
+                                 f"{r['pairs_per_step']}; the JAX field's "
+                                 f"{JAX_BENCH_COUNTS[name]}")
+        if not r["finite"] or r["n_floes_end"] != r["n_floes"]:
+            raise AssertionError(f"{name}: finite {r['finite']}, floes "
+                                 f"{r['n_floes']} -> {r['n_floes_end']}")
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launched {launches} times in {want} steps")
+        report["launches_by_path"][f"run_scan step (bench {name})"] = launches
+        r["pairs_per_s"] = round(r["pairs_per_s"], 1)
+        if name == "many_floes_8000":
+            a, _ = run_scan(fork(sim), BITWISE_STEPS)
+            b, _ = run_scan(fork(sim), BITWISE_STEPS)
+            same_state(a, b, name)
+            bitwise = {"config": name, "n_steps": BITWISE_STEPS, "bitwise_equal": True}
+            del a, b
+        if name in ("many_floes_16000", "many_floes_32000"):
+            nb = narrow_phase_batch(sim.model.floes, sim.model.domain, sim.pair_cap,
+                                    sim.bins)
+            kernel[name] = {"check": check_main_path_batch(nb, name, report),
+                            "timing": time_kernel(nb)}
+            report.setdefault("bench_kernel", {})[name] = kernel[name]["timing"]
+            del nb
+        detail[name] = r
+        del sim
+        torch.cuda.empty_cache()
+    line = bench.result_line(detail)
+    print(json.dumps(line), flush=True)
+    emit("bench", counts_equal_jax=True, host_setup_seconds=setup,
+         determinism=bitwise, kernel=kernel,
+         segment_sum=segment_sum_card_vs_cpu(dev))
+
+
+# tests/test_f32_drift.py: percent drift after 5 000 f32 steps
+F32_DRIFT_STEPS = 5000
+F32_DRIFT_BOUNDS = {"head_on": {"ke": 0.01, "px": 0.01, "py": 0.01, "l": 0.2},
+                    "three_floes": {"ke": 0.01, "px": 0.01, "py": 0.01, "l": 1.0}}
+
+
+F32_DRIFT_TIMEOUT = 900  # seconds for a scenario's process, start-up included
+
+
+def f32_drift_run(scenario: str, dev) -> dict:
+    """One scenario of the gate: 5 000 f32 steps of conservation_run on
+    ``dev``, the kernel's launches counted from 0 just before."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.tools.scenarios import conservation_run
+
+    two_cross.reset_launch_count()
+    t0 = time.perf_counter()
+    drift, sim = conservation_run(torch.float32, scenario, F32_DRIFT_STEPS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_finite(sim)
+    return {"drift_percent": drift, "seconds": seconds,
+            "ms_per_step": 1e3 * seconds / F32_DRIFT_STEPS,
+            "kernel_launches": two_cross.launch_count()}
+
+
+def phase_f32_drift(dev, report):
+    """The JAX package's f32 conservation gate on the card, through the
+    kernel: head_on and three_floes, 5 000 f32 steps each, one process a
+    scenario, both at once (each step is host-bound); every process is
+    killed at the first failure or at its time limit."""
+    logs = {sc: tempfile.TemporaryFile(mode="w+") for sc in F32_DRIFT_BOUNDS}
+    procs = {sc: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--f32-drift", sc],
+        stdout=logs[sc], stderr=subprocess.STDOUT, text=True)
+        for sc in F32_DRIFT_BOUNDS}
+    out = {}
+    try:
+        for sc, proc in procs.items():
+            proc.wait(timeout=F32_DRIFT_TIMEOUT)
+            logs[sc].seek(0)
+            text = logs[sc].read()
+            if proc.returncode != 0:
+                raise RuntimeError(f"f32_drift {sc} failed:\n{text}")
+            out[sc] = json.loads(text.strip().splitlines()[-1])
+    finally:
+        for sc, proc in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logs[sc].close()
+    for sc, bounds in F32_DRIFT_BOUNDS.items():
+        r, drift = out[sc], out[sc]["drift_percent"]
+        if r["kernel_launches"] != F32_DRIFT_STEPS:
+            raise AssertionError(f"{sc}: kernel launched {r['kernel_launches']} times in "
+                                 f"{F32_DRIFT_STEPS} steps")
+        over = {k: drift[k] for k, b in bounds.items() if not abs(drift[k]) < b}
+        if over:
+            raise AssertionError(f"{sc}: f32 drift beyond the JAX bounds "
+                                 f"{bounds} (percent): {over}")
+        report["launches_by_path"][f"run_scan step (f32_drift {sc})"] = r["kernel_launches"]
+        r["bounds_percent"] = bounds
+    emit("f32_drift", dtype="float32", n_steps=F32_DRIFT_STEPS, **out)
+
+
+def phase_e2e_shear_flow(dev, report):
+    """tools/e2e_shear_flow.py's run on the card: shear_flow, 5 000 steps of
+    run with its floe writer every 50 steps (the file half kept in memory
+    where there is no h5py), 16 candidate rows a floe; fails on any step
+    over capacity, as the tool exits 1."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.tools import e2e_shear_flow as e2e
+
+    files = h5py_available()
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = e2e.build(tmp, device=dev)
+        sim.verbose = False
+        kept = None if files else keep_in_memory(sim.writers)
+        two_cross.reset_launch_count()
+        r = e2e.run_counted(sim)
+        launches = two_cross.launch_count()
+    sim = r.pop("sim")
+    check_finite(sim)
+    passes = sum(sim.run_stats["host_pass_launches"].values())
+    report["launches_by_path"]["run step (e2e_shear_flow)"] = launches - passes
+    floe_events = len(kept["floes"]) if kept else None
+    emit("e2e_shear_flow", files=files, floe_writer_events=floe_events,
+         kernel_launches={"step": launches - passes, "host_passes": passes},
+         host_pass_seconds=sim.run_stats["host_pass_seconds"], **r)
+    if r["n_overflow_steps"]:
+        raise AssertionError(f"e2e_shear_flow: {r['n_overflow_steps']} steps over capacity")
+
+
+def phase_lifecycle_walltime(dev, report):
+    """tools/lifecycle_walltime.py on the card: each host pass on the
+    8 016-floe pool against many_floes_8000's step at the pass's cadence."""
+    from subzero_tpu_torch.tools import lifecycle_walltime
+
+    emit("lifecycle_walltime", **lifecycle_walltime.walltime(device=dev))
+
+
 def step_ms(sim, n_steps) -> float:
     from subzero_tpu_torch.simulation import run_scan
 
@@ -2332,6 +2508,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--decomp-rank", metavar="FILE", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--f32-drift", metavar="SCENARIO", default=None,
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     phases = [p for p in opts.phases.split(",") if p]
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -2346,6 +2524,12 @@ def main(argv=None) -> int:
         return parent_worker(opts.parent_worker)
     if opts.decomp_rank:
         return decomp_rank(opts.decomp_rank)
+    if opts.f32_drift:
+        print(json.dumps(f32_drift_run(opts.f32_drift, torch.device("cuda", 0))),
+              flush=True)
+        return 0
+    from subzero_tpu_torch.bench import nvidia_smi
+
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
@@ -2371,33 +2555,28 @@ def main(argv=None) -> int:
                       "seconds": time.perf_counter() - t0})
 
     report = {"launches_by_path": {}}
-    if "kernel" in phases:
-        phase_kernel(dev, report)
-    if "slice" in phases:
-        phase_slice(dev, report)
-    if "card_cpu" in phases:
-        phase_card_cpu(dev)
-    if "determinism" in phases:
-        phase_determinism(dev)
-    if "many_floes_2000" in phases:
-        phase_many_floes(dev, report)
-    if "binned" in phases:
-        phase_binned(dev, report)
-    if "overlaps" in phases:
-        phase_overlaps(dev, report)
-    if "lifecycle" in phases:
-        phase_lifecycle(dev, report)
-    if "lifecycle_card_cpu" in phases:
-        phase_lifecycle_card_cpu(dev, report)
-    if "writers" in phases:
-        phase_writers(dev, report)
-    if "restart" in phases:
-        phase_restart(dev, report)
-    if "decomp" in phases:
-        torch.cuda.empty_cache()  # the rank processes share the card
-        phase_decomp(dev, report)
-    if "profile" in phases:
-        phase_profile(dev)
+    # every phase in the order of PHASES + EXTRA_PHASES; the rank processes
+    # of decomp share the card, so the cache is emptied before them
+    run_phase = {
+        "kernel": phase_kernel, "slice": phase_slice,
+        "card_cpu": lambda d, r: phase_card_cpu(d),
+        "determinism": lambda d, r: phase_determinism(d),
+        "many_floes_2000": phase_many_floes, "binned": phase_binned,
+        "overlaps": phase_overlaps, "lifecycle": phase_lifecycle,
+        "lifecycle_card_cpu": phase_lifecycle_card_cpu, "writers": phase_writers,
+        "restart": phase_restart, "bench": phase_bench, "f32_drift": phase_f32_drift,
+        "decomp": lambda d, r: (torch.cuda.empty_cache(), phase_decomp(d, r)),
+        "profile": lambda d, r: phase_profile(d),
+        "e2e_shear_flow": phase_e2e_shear_flow,
+        "lifecycle_walltime": phase_lifecycle_walltime,
+    }
+    seconds = {}
+    for name in PHASES + EXTRA_PHASES:
+        if name in phases and name in run_phase:
+            t0 = time.perf_counter()
+            run_phase[name](dev, report)
+            seconds[name] = time.perf_counter() - t0
+    emit("seconds", by_phase=seconds)
     if opts.parent and report.get("parent_batches"):
         emit("parent_kernel", checkout=opts.parent,
              **time_parent_kernel(opts.parent, report["parent_batches"]))

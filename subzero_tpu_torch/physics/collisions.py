@@ -15,9 +15,9 @@ capacities and overflow flags as the reference:
   * Hopkins elastic + Coulomb friction forces (collisions.jl:30-283) are
     accumulated into per-floe force, torque, stress moments and overlap.
 
-Accumulations are deterministic: row-structured reshape sums, one-hot
-products in the working precision, or writes to distinct indices - never
-float atomics, whose order changes between runs.
+Accumulations are deterministic: row-structured reshape sums, segment sums
+over stably sorted rows, or writes to distinct indices - never float
+atomics, whose order changes between runs.
 """
 
 from __future__ import annotations
@@ -633,13 +633,18 @@ def _region_forces(consts: Constants, dt: float, vals, s: _PairSides, shift,
     return force, fp, overlap_rec
 
 
-def _onehot_sum(payload, idx, N: int):
+def _segment_sum(payload, idx, N: int):
     """Sum ``payload [K, F]`` into ``out [N, F]`` at rows ``idx [K]``; rows
-    with idx outside [0, N) drop out.  A one-hot product in the payload's
-    precision: deterministic, unlike float atomics (the payload is masked
-    beforehand, so a dropped row contributes exact zeros)."""
-    onehot = (idx[:, None] == torch.arange(N, device=idx.device)).to(payload.dtype)
-    return onehot.T @ payload
+    with idx outside [0, N) drop out.  Deterministic without float atomics:
+    the rows are sorted stably by idx and each floe's rows are added one
+    after another in their original order, in O(K F + N F) memory."""
+    key = torch.where((idx >= 0) & (idx < N), idx, N).long()
+    key, order = torch.sort(key, stable=True)
+    # segment n is rows [bounds[n], bounds[n + 1]); segment N holds the
+    # dropped rows and is cut off
+    bounds = torch.searchsorted(key, torch.arange(N + 2, device=idx.device))
+    return torch.segment_reduce(payload[order], "sum", offsets=bounds,
+                                axis=0, unsafe=True)[:N]
 
 
 def _put_rows(x, idx, n: int):
@@ -682,12 +687,12 @@ def _accumulate_contacts(N, i, j, s: _PairSides, pair_valid, is_ff, shift,
     smv_j = stress_moments(rj_, -force)
     ov = torch.sum(overlap_rec, dim=1)
 
-    # payload columns: fx, fy, trq, s11, s12, s22, overarea  (7); masked
-    # before the sums so a dropped row contributes exact zeros
+    # payload columns: fx, fy, trq, s11, s12, s22, overarea  (7); the i
+    # side is masked before its reshape sums so a dropped row contributes
+    # exact zeros, the segment sums drop rows by their index
     pay_i = torch.cat([fsum, trq_i[:, None], smv_i, ov[:, None]], dim=1)
     pay_i = torch.where(pair_valid[:, None], pay_i, 0.0)
     pay_j = torch.cat([-fsum, trq_j[:, None], smv_j, ov[:, None]], dim=1)
-    pay_j = torch.where(is_ff[:, None], pay_j, 0.0)
 
     if row_cap is not None:
         NR = N if n_rows is None else n_rows
@@ -697,10 +702,10 @@ def _accumulate_contacts(N, i, j, s: _PairSides, pair_valid, is_ff, shift,
             acc_i = torch.cat([acc_i, acc_i.new_zeros((N - NR, acc_i.shape[1]))])
         if K > R:  # second-chance entries: arbitrary i
             seg_ie = torch.where(pair_valid[R:], i[R:], N)
-            acc_i = acc_i + _onehot_sum(pay_i[R:], seg_ie, N)
+            acc_i = acc_i + _segment_sum(pay_i[R:], seg_ie, N)
     else:
-        acc_i = _onehot_sum(pay_i, torch.where(pair_valid, i, N), N)
-    acc_j = _onehot_sum(pay_j, torch.where(is_ff, j, N), N)
+        acc_i = _segment_sum(pay_i, torch.where(pair_valid, i, N), N)
+    acc_j = _segment_sum(pay_j, torch.where(is_ff, j, N), N)
 
     acc = acc_i + acc_j
     col_force = acc[:, 0:2]

@@ -1,7 +1,8 @@
 """The port on the card: the narrow-phase CUDA kernel against its plain
 PyTorch version, the wrapper's checks, a short run_scan that goes through
 the kernel and agrees with the CPU run, ``pair_overlaps`` on the card against
-the CPU, and a 20-step ``run`` with a fracture pass.
+the CPU, a 20-step ``run`` with a fracture pass, and the JAX package's f32
+conservation gate (5 000 steps of head_on and three_floes).
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs on a machine that has none, without the JAX-side
@@ -266,3 +267,25 @@ def test_cuda_decomposition_on_two_gloo_ranks_matches_cpu_ranks(tmp_path):
             assert np.abs(card - cpu).max(initial=0.0) <= 1e-6 * scale, key
         else:
             np.testing.assert_array_equal(card, cpu, err_msg=key)
+
+
+# tests/test_f32_drift.py: percent drift after 5 000 f32 steps
+F32_DRIFT_BOUNDS = {"head_on": 0.2, "three_floes": 1.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", sorted(F32_DRIFT_BOUNDS))
+def test_cuda_f32_drift_within_the_jax_bounds(scenario):
+    """The JAX package's f32 gate on the card, through the kernel: 5 000 f32
+    steps, KE and linear momentum within 0.01%, angular momentum within
+    0.2% (head_on) or 1.0% (three_floes)."""
+    cuda_or_skip()
+    from subzero_tpu_torch.tools.scenarios import conservation_run
+
+    tc_kernel.reset_launch_count()
+    drift, sim = conservation_run(torch.float32, scenario, 5000)
+    assert tc_kernel.launch_count() == 5000
+    assert sim.model.floes.verts.is_cuda
+    for k in ("ke", "px", "py"):
+        assert abs(drift[k]) < 0.01, drift
+    assert abs(drift["l"]) < F32_DRIFT_BOUNDS[scenario], drift

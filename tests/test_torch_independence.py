@@ -52,7 +52,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                     "examples.converge_diverge_flow", "examples.forcing_contained_floes",
                     "examples.moving_bounds", "examples.many_floes",
                     "examples.restart_sim", "parallel", "parallel.decomp",
-                    "parallel.multihost", "examples.distributed_shear_flow"):
+                    "parallel.multihost", "examples.distributed_shear_flow",
+                    "bench", "tools.f32_drift_table", "tools.e2e_shear_flow",
+                    "tools.lifecycle_walltime"):
             assert "subzero_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)

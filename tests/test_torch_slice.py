@@ -11,6 +11,7 @@ import warnings
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from subzero_tpu.constants import Constants
@@ -31,6 +32,7 @@ from subzero_tpu.settings import (
 )
 from subzero_tpu.simulation import Simulation as JaxSimulation
 from subzero_tpu.simulation import run_scan as jax_run_scan
+from subzero_tpu_torch import bench as tbench
 from subzero_tpu_torch import core as tcore
 from subzero_tpu_torch.core.model import make_model as torch_make_model
 from subzero_tpu_torch.simulation import Simulation as TorchSimulation
@@ -114,6 +116,22 @@ def _tendency_atol(ref, dt, atol_rel=1e-9):
     return out
 
 
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "tied"])
+def test_voronoi_neighbours_come_in_argsort_order(ties):
+    """The Voronoi tessellation's partial sort hands out every index in
+    np.argsort's order, past its first m too, with distinct distances and
+    with ties (where it takes the full sort)."""
+    from subzero_tpu_torch.core.init import _by_distance
+
+    rng = np.random.default_rng(5)
+    d = rng.random(1000)
+    if ties:
+        d = np.round(d * 50) / 50
+    for m in (1, 8, 64, 999, 1000, 2000):
+        np.testing.assert_array_equal(np.fromiter(_by_distance(d, m), int),
+                                      np.argsort(d))
+
+
 def test_run_scan_matches_jax_step_by_step():
     """100 steps of run_scan in both packages.
 
@@ -182,18 +200,23 @@ def test_run_scan_matches_jax_step_by_step():
                                       np.asarray(getattr(jfl, f)), err_msg=f)
 
 
-def test_chip_smoke_config_mirrors_bench():
-    """chip_smoke.build_sim, the port's shear_flow / many_floes setup, builds
-    what bench.build_sim builds from the same arguments: the same f32 floe
-    pool, fields, modulus, settings and capacities (at 40 floes)."""
+def _jax_bench():
     sys.path.insert(0, str(REPO))
     try:
         import bench
-        import chip_smoke
     finally:
         sys.path.remove(str(REPO))
+    return bench
+
+
+def test_chip_smoke_config_mirrors_bench():
+    """subzero_tpu_torch.bench.build_sim, the port's bench setup (chip_smoke
+    builds its shear_flow / many_floes fields with it), builds what
+    bench.build_sim builds from the same arguments: the same f32 floe pool,
+    fields, modulus, settings and capacities (at 40 floes)."""
+    bench = _jax_bench()
     ref = bench.build_sim(40, 1e5, 2e3)
-    got = chip_smoke.build_sim(40, 1e5, 2e3, device="cpu", dtype=torch.float32)
+    got = tbench.build_sim(40, 1e5, 2e3, device="cpu", dtype=torch.float32)
     assert_fields_close(got.model.floes, ref.model.floes, rtol=0, atol_rel=0)
     assert_fields_close(got.model.ocean, ref.model.ocean, rtol=0, atol_rel=0)
     assert_fields_close(got.model.atmos, ref.model.atmos, rtol=0, atol_rel=0)
@@ -204,10 +227,37 @@ def test_chip_smoke_config_mirrors_bench():
         assert getattr(got, f) == port_settings(getattr(ref, f)), f
     # and with the binned broad phase: the same bins and list capacity
     ref = bench.build_sim(400, 1e5, 2e3, bins=True)
-    got = chip_smoke.build_sim(400, 1e5, 2e3, device="cpu", dtype=torch.float32,
-                               bins=True)
+    got = tbench.build_sim(400, 1e5, 2e3, device="cpu", dtype=torch.float32,
+                           bins=True)
     assert got.bins == ref.bins and got.bins is not None
     assert got.pair_cap == ref.pair_cap == 8 * ref.model.floes.capacity
+
+
+def test_bench_measure_on_the_cpu():
+    """subzero_tpu_torch.bench.measure on a 40-floe field on the CPU: every
+    key of bench.py's measure and the port's own, the JAX package's
+    candidate pair count, and a finite end state with no floe lost."""
+    import jax
+
+    from subzero_tpu.physics.collisions import find_candidate_pairs
+
+    ref = _jax_bench().build_sim(40, 1e5, 2e3)
+    jpairs = jax.jit(find_candidate_pairs, static_argnums=(2, 3))(
+        ref.model.floes, ref.model.domain, ref.pair_cap, ref.bins)
+    sim = tbench.build_sim(40, 1e5, 2e3, device="cpu")
+    r = tbench.measure(sim, n_steps=3)
+    assert set(r) == {"pairs_per_s", "steps_per_s", "step_ms", "pairs_per_step",
+                      "n_floes", "binned", "two_way_coupling", "n_steps",
+                      "n_overflow", "finite", "n_floes_end", "peak_mem_gib"}
+    assert r["pairs_per_step"] == int(jnp.sum(jpairs.valid)) > 0
+    assert r["n_floes"] == r["n_floes_end"] == int(ref.model.floes.count())
+    assert r["finite"] and r["n_overflow"] == 0 and r["peak_mem_gib"] is None
+    assert not r["binned"] and r["two_way_coupling"] and r["n_steps"] == 3
+    assert r["pairs_per_s"] == pytest.approx(r["pairs_per_step"] * 1e3 / r["step_ms"],
+                                             rel=1e-3)
+    line = tbench.result_line({"shear_flow_500": r})
+    assert line["value"] == r["pairs_per_s"] and line["unit"] == "pairs/s"
+    assert line["vs_baseline"] == round(r["pairs_per_s"] / 1e6, 3)
 
 
 def test_chip_smoke_many_floes_mirrors_the_example():
