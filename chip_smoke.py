@@ -39,11 +39,14 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
   binned    bench.build_sim(8000, 4e5, 2e3, bins=True)'s counterpart: the
             binned and the dense candidate list hold the same canonical pairs
             once each at step 0; the kernel's check and times at its batch
-            (68 000 rows); 50 steps of run_scan; ms/step binned and dense on
-            that field and on many_floes_2000, in turns
+            (68 000 rows); timestep_collisions' overflow counters
+            (with_debug=True) card against CPU at step 0; 50 steps of
+            run_scan; ms/step binned and dense on that field and on
+            many_floes_2000, in turns
   overlaps  shear_flow_500 after 100 steps, f32 and f64: pair_overlaps and
             pair_interactions on the card (kernel) against a CPU copy of the
-            state (plain versions)
+            state (plain versions); the overflow counters card against CPU
+            on its step-0 pool
   lifecycle examples/many_floes.py's configuration (1 000 floes in a pool of
             2 000, open boundaries, fracture every 75 steps, ridge/raft every
             150, weld every 500), f32, 601 steps of run, twice from one seed:
@@ -113,6 +116,22 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             the port's tools.lifecycle_walltime: weld, smooth, a fracture of
             5% of the pool and fuse on the 8 016-floe pool pulled from the
             card, each against many_floes_8000's step at its cadence
+  overflow_source  (only when named) tools/probe_overflow_source.py through
+            the port's tool: which capacity fires the overflow flag, hit
+            totals by term and the crowded floe, on its own configuration
+            (shear_flow, 2 000 steps, 16 rows a floe), the lifecycle phase's
+            run (probed through run's callback; the same overflow count as
+            without it) and the overlap query on its final pool, and
+            simple_strait's step 0
+  scaling   (only when named) tools/measure_scaling.py through the port's
+            tool as 4 gloo ranks sharing the card (not a scaling figure):
+            comm isolation against decomp.COMM_IDENTITY, bytes a step
+            against comm_bytes_per_step, the NVLink projection from this
+            card's own per-slab step; with nccl where there are four cards
+  lifecycle_overhead  (only when named) tools/lifecycle_overhead.py through
+            the port's tool as 4 gloo ranks: the JAX tool's fracture-on
+            field at 1 and 4 ranks, the rows the host passes are handed and
+            the passes' count and mean time
 
 Then a line with each phase's seconds, a {"kernels": [...]} line, the
 nvidia-smi name/power-limit line, and
@@ -149,8 +168,10 @@ PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
           "many_floes_2000", "binned", "overlaps", "lifecycle",
           "lifecycle_card_cpu", "writers", "restart", "bench", "f32_drift",
           "decomp")
-EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime")
+EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime", "overflow_source",
+                "scaling", "lifecycle_overhead")
 SEED = 1
+LIFECYCLE_N_DT = 600   # the life-cycle runs of examples/many_floes.py: steps 0..600
 
 # kernel vs plain, f32: the tolerances of tests/test_pallas_clip.py (cnt and
 # ok exact, geometry compared where the pair is ok); f64: rtol 1e-9
@@ -721,6 +742,9 @@ def phase_binned(dev, report):
     nb = narrow_phase_batch(fl, dom, sim.pair_cap, sim.bins)
     check = check_main_path_batch(nb, "many_floes_8000", report)
     timing = time_kernel(nb)
+    counters = counters_card_vs_cpu(sim)
+    report["launches_by_path"]["timestep_collisions with_debug (counters, many_floes_8000)"] = \
+        counters["kernel_launches"]
 
     run_scan(fork(sim), 3)  # warm-up
     _, nums = run_timed(fork(sim), 50)
@@ -755,6 +779,7 @@ def phase_binned(dev, report):
          narrow_phase_rows=int(nb.pairs.qi.shape[0]),
          narrow_phase_valid_pairs=int(nb.pairs.valid.sum()),
          dense_rows=int(dense.qi.shape[0]), kernel_check=check,
+         step_0_counters_card_vs_cpu=counters,
          kernel_timing=timing,
          step_ms_many_floes_8000=step_ms_8000,
          bins_many_floes_2000=list(small_binned.bins),
@@ -836,6 +861,58 @@ def drop_borderline_rows(card, cpu, nverts, f64: bool):
             {k: v[keep_h] for k, v in cpu.items()}, taken)
 
 
+def cpu_copy(floes, domain):
+    """A pool and its domain moved to the CPU."""
+    return floes.to("cpu"), dataclasses.replace(
+        domain, vals=domain.vals.cpu(), velocities=domain.velocities.cpu(),
+        topography=type(domain.topography)(*(x.cpu() for x in domain.topography)))
+
+
+# timestep_collisions' result card against CPU, f32, on a step-0 pool: the
+# flags and marks exactly, the sums within this fraction of their largest
+# magnitude (the kernel equals its plain version to the bit; the plain
+# PyTorch around it may add in another order)
+COUNTERS_RESULT_TOL = 1e-4
+
+
+def counters_card_vs_cpu(sim) -> dict:
+    """``timestep_collisions(..., with_debug=True)`` on the state of ``sim``
+    on the card (kernel, one launch) against a CPU copy (plain versions):
+    every counter of the JAX package's dict exactly equal (integers and
+    flags), and the result as the step uses it (forces, torques, overlap
+    and stress within COUNTERS_RESULT_TOL of their largest; overflow,
+    removal and fuse marks exactly)."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.physics.collisions import timestep_collisions
+
+    t0 = time.perf_counter()
+    fl, dom = sim.model.floes, sim.model.domain
+    args = (sim.consts, float(sim.dt), sim.collision_settings, sim.pair_cap,
+            sim.clip_cap, sim.bins)
+    two_cross.reset_launch_count()
+    card, dbg = timestep_collisions(fl, dom, *args, with_debug=True)
+    launches = two_cross.launch_count()
+    cpu, cdbg = timestep_collisions(*cpu_copy(fl, dom), *args, with_debug=True)
+    got = {k: v.item() for k, v in dbg.items()}
+    want = {k: v.item() for k, v in cdbg.items()}
+    if got != want or launches != 1:
+        raise AssertionError(f"counters card {got} vs CPU {want}; {launches} launches")
+    if bool(card.overflow) != bool(cpu.overflow):
+        raise AssertionError("overflow flag differs between the card and the CPU")
+    for f in ("remove", "fuse_with"):
+        if not torch.equal(getattr(card.floes, f).cpu(), getattr(cpu.floes, f)):
+            raise AssertionError(f"floes.{f} differs between the card and the CPU")
+    diffs = {f: max_rel_diff(getattr(card.floes, f), getattr(cpu.floes, f))
+             for f in ("collision_force", "collision_trq", "overarea")}
+    diffs["stress_instant"] = max_rel_diff(card.stress_instant, cpu.stress_instant)
+    if not max(diffs.values()) <= COUNTERS_RESULT_TOL:
+        raise AssertionError(f"timestep_collisions card vs CPU beyond "
+                             f"{COUNTERS_RESULT_TOL}: {diffs}")
+    return {"counters": got, "result_max_rel_diff": diffs,
+            "tolerance": COUNTERS_RESULT_TOL, "kernel_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
 def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
     """pair_overlaps and pair_interactions on the state of ``sim`` on the
     card (kernel) against the same functions on a CPU copy of it (plain
@@ -850,10 +927,7 @@ def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
     from subzero_tpu_torch.physics.collisions import pair_interactions, pair_overlaps
 
     fl, dom = sim.model.floes, sim.model.domain
-    fl_cpu = fl.to("cpu")
-    dom_cpu = dataclasses.replace(
-        dom, vals=dom.vals.cpu(), velocities=dom.velocities.cpu(),
-        topography=type(dom.topography)(*(x.cpu() for x in dom.topography)))
+    fl_cpu, dom_cpu = cpu_copy(fl, dom)
 
     two_cross.reset_launch_count()
     i, j, area, valid, ovf = pair_overlaps(fl, dom, sim.pair_cap, sim.clip_cap, bins)
@@ -912,8 +986,13 @@ def phase_overlaps(dev, report):
     by_path = report["launches_by_path"]
     by_path["pair_overlaps (overlaps phase)"] = n_po
     by_path["pair_interactions (overlaps phase)"] = n_pi
+    # the overflow flag's counters on the step-0 pool, card against CPU
+    counters = counters_card_vs_cpu(build_sim(500, 1e5, 2e3, device=dev, dtype=torch.float32))
+    by_path["timestep_collisions with_debug (counters, shear_flow_500)"] = \
+        counters["kernel_launches"]
     emit("overlaps", config="shear_flow_500 after 100 steps",
-         tolerance={"float32": F32_TOL["area"], "float64": F64_TOL["area"]}, **out)
+         tolerance={"float32": F32_TOL["area"], "float64": F64_TOL["area"]},
+         step_0_counters_card_vs_cpu=counters, **out)
 
 
 def count_host_syncs(fn):
@@ -1007,7 +1086,7 @@ def phase_lifecycle(dev, report):
     from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import run
 
-    n_dt = 600
+    n_dt = LIFECYCLE_N_DT
     base = build_many_floes(1000, device=dev, dtype=torch.float32, n_dt=n_dt)
     fl0 = base.model.floes
     mass0 = float(fl0.mass[fl0.active].double().sum())
@@ -1610,31 +1689,29 @@ VS_SINGLE_TOL = {"centroid": dict(rtol=0, atol=1e-4), "u": dict(rtol=1e-4, atol=
 VS_SINGLE_SI_FRAC = dict(rtol=1e-4, atol=1e-10)
 
 
-def decomp_launch(world, backend, parts, out_dir, timeout, one_card_a_rank=False):
-    """Start ``world`` rank processes of this script (``--decomp-rank``) on a
-    process group of ``backend`` and wait for them; a rank that fails or does
-    not end within ``timeout`` seconds kills the others and fails the phase.
-    Returns each rank's results."""
+def launch_ranks(cmd, world, tag, out_dir, timeout, one_card_a_rank=False):
+    """Start ``world`` processes of ``cmd`` as the ranks of one process group
+    (the environment torchrun sets: env://, RANK, LOCAL_RANK) and wait for
+    them; a rank that fails or does not end within ``timeout`` seconds kills
+    the others and fails the phase.  Every rank runs on card 0 unless
+    ``one_card_a_rank``.  Returns each rank's log file."""
     import socket
 
     s = socket.socket()
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
     s.close()
-    spec = os.path.join(out_dir, f"{backend}{world}.json")
-    with open(spec, "w") as f:
-        json.dump({"backend": backend, "parts": parts, "out_dir": out_dir}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
     procs, logs = [], []
     for r in range(world):
         env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
                    WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r))
         if not one_card_a_rank:
             env["CUDA_VISIBLE_DEVICES"] = "0"   # every rank on the one card
-        logs.append(os.path.join(out_dir, f"{backend}{world}.rank{r}.log"))
+        logs.append(os.path.join(out_dir, f"{tag}.rank{r}.log"))
         with open(logs[-1], "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--decomp-rank", spec],
-                stdout=log, stderr=subprocess.STDOUT, env=env))
+            procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                          env=env, cwd=here))
     deadline = time.monotonic() + timeout
     try:
         while True:
@@ -1643,14 +1720,26 @@ def decomp_launch(world, backend, parts, out_dir, timeout, one_card_a_rank=False
                 break
             if any(c not in (None, 0) for c in codes) or time.monotonic() > deadline:
                 tails = "\n---\n".join(open(f).read()[-4000:] for f in logs)
-                raise RuntimeError(f"decomp ranks ({backend}, {world}) ended with "
-                                   f"{codes} (None: killed at the time limit):\n{tails}")
+                raise RuntimeError(f"ranks of {tag} ended with {codes} "
+                                   f"(None: killed at the time limit):\n{tails}")
             time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
+    return logs
+
+
+def decomp_launch(world, backend, parts, out_dir, timeout, one_card_a_rank=False):
+    """The named parts of the decomp phase as ``world`` rank processes of this
+    script (``--decomp-rank``) on a process group of ``backend``; returns
+    each rank's results."""
+    spec = os.path.join(out_dir, f"{backend}{world}.json")
+    with open(spec, "w") as f:
+        json.dump({"backend": backend, "parts": parts, "out_dir": out_dir}, f)
+    launch_ranks([sys.executable, os.path.abspath(__file__), "--decomp-rank", spec],
+                 world, f"{backend}{world}", out_dir, timeout, one_card_a_rank)
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"{backend}{world}.result{r}.json")) as f:
@@ -2441,6 +2530,153 @@ def phase_lifecycle_walltime(dev, report):
     emit("lifecycle_walltime", **lifecycle_walltime.walltime(device=dev))
 
 
+PROBE_LINES = 10   # flagged steps printed per probed run
+OVERFLOW_PROBE_STEPS = 2000   # the JAX tool's default
+
+
+def probe_counted(fn):
+    """``fn()`` with the kernel's launches counted from 0 (overflow notes
+    muted); returns (its result, launches)."""
+    from subzero_tpu_torch.geometry import two_cross
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        two_cross.reset_launch_count()
+        out = fn()
+        torch.cuda.synchronize()
+    return out, two_cross.launch_count()
+
+
+def phase_overflow_source(dev, report):
+    """tools/probe_overflow_source.py through the port's tool, on the card:
+    which capacity fires the overflow flag.  Its own configuration
+    (shear_flow, 2 000 steps stepped with build_step, 16 candidate rows a
+    floe, clip_cap 32); the life-cycle run (examples/many_floes.py as the
+    lifecycle phase runs it, 601 steps of run, probed through run's
+    callback) against the same run without the callback, which must count
+    the same overflow steps, and on its final pool the terms of the host
+    passes' overlap query; simple_strait's step 0 at its width.  Hit totals
+    by term and the crowded floe of each."""
+    from subzero_tpu_torch.examples import simple_strait
+    from subzero_tpu_torch.simulation import run
+    from subzero_tpu_torch.tools import probe_overflow_source as probe
+
+    by_path = report["launches_by_path"]
+    lines = []
+
+    def out(line):
+        if len(lines) < PROBE_LINES:
+            lines.append(line)
+
+    sim = probe.build(OVERFLOW_PROBE_STEPS, dev)
+    shear, n = probe_counted(lambda: probe.probe_steps(sim, OVERFLOW_PROBE_STEPS, out=out))
+    by_path["build_step + probe (overflow_source, shear_flow 16N)"] = n
+    if n != 2 * shear["steps"]:
+        raise AssertionError(f"shear_flow probe: {n} launches in {shear['steps']} steps")
+    shear["printed"], lines = lines, []
+
+    base = build_many_floes(1000, device=dev, dtype=torch.float32, n_dt=LIFECYCLE_N_DT)
+    probed, n = probe_counted(lambda: probe.probe_run(fork(base), out=out))
+    by_path["run step + probe (overflow_source, life cycle)"] = n
+    plain, n_plain = probe_counted(lambda: run(fork(base)))
+    by_path["run step (overflow_source, life cycle without the probe)"] = n_plain
+    if probed["n_overflow"] != plain.n_overflow:
+        raise AssertionError(f"life cycle: {probed['n_overflow']} overflow steps with the "
+                             f"probe as callback, {plain.n_overflow} without")
+    probed["printed"], lines = lines, []
+    check_finite(plain)
+    final_terms, n = probe_counted(lambda: probe.overlap_query_terms(
+        plain, plain.model.floes, plain.model.domain))
+    by_path["overlap query terms (overflow_source, life cycle final pool)"] = n
+
+    strait = simple_strait.build(device=dev)
+    strait.verbose = False
+    step0, n = probe_counted(lambda: probe.probe_steps(strait, 1, out=out))
+    by_path["build_step + probe (overflow_source, simple_strait step 0)"] = n
+    step0["printed"] = lines
+    emit("overflow_source", dtype="float32",
+         shear_flow={"config": "examples/shear_flow.py, 16 candidate rows a floe, "
+                               "clip_cap 32", **shear},
+         life_cycle={"config": "examples/many_floes.py, 1000 floes in a pool of 2000, "
+                               "601 steps of run", "probed": probed,
+                     "n_overflow_without_probe": plain.n_overflow,
+                     "final_pool_overlap_query_terms": final_terms},
+         simple_strait_step_0={"config": "examples/simple_strait.py at its width",
+                               **step0})
+
+
+def tool_ranks(module, args, tag, timeout):
+    """The port's ``tools.<module>`` as DECOMP_RANKS gloo rank processes
+    sharing the card; returns each rank's JSON line (its last line)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = launch_ranks([sys.executable, "-m", f"subzero_tpu_torch.tools.{module}",
+                             *args, "--backend", "gloo"], DECOMP_RANKS, tag, tmp, timeout)
+        out = []
+        for log in logs:
+            with open(log) as f:
+                text = f.read()
+            out.append(json.loads(text.strip().splitlines()[-1]))
+        table = [ln for ln in open(logs[0]).read().splitlines() if ln.startswith("|")]
+    for r in out[1:]:
+        if {k: v for k, v in r.items() if k != "rank"} != \
+                {k: v for k, v in out[0].items() if k != "rank"}:
+            raise AssertionError(f"{module}: rank {r['rank']} printed other figures than rank 0")
+    return out, table
+
+
+NOT_SCALING = "4 gloo ranks on one card: not a scaling figure"
+
+
+def phase_scaling(dev, report):
+    """tools/measure_scaling.py through the port's tool at its defaults
+    (8 000 floes, 15 steps) as 4 gloo ranks sharing the card: comm
+    isolation against COMM_IDENTITY, bytes a step against
+    comm_bytes_per_step, the NVLink projection from this card's own
+    t_slab; and through nccl, one rank a card, where there are four."""
+    torch.cuda.empty_cache()
+    figs, table = tool_ranks("measure_scaling", [], "scaling", 600)
+    res = figs[0]
+    by_path = report["launches_by_path"]
+    for r in res["rows"]:
+        if r["identity_exchange_bytes_per_step"] != 0 or r["exchange_bytes_per_step"] <= 0:
+            raise AssertionError(f"scaling: exchange bytes of {r['configuration']}: "
+                                 f"{r['exchange_bytes_per_step']} (identity "
+                                 f"{r['identity_exchange_bytes_per_step']})")
+        if r["kernel_launches"] != r["steps"]:
+            raise AssertionError(f"scaling: {r['kernel_launches']} launches in "
+                                 f"{r['steps']} steps of {r['configuration']}")
+        by_path[f"decomp step (scaling, {r['configuration']}, rank 0)"] = r["kernel_launches"]
+    for nd, r in res["run_decomp_fracture"].items():
+        by_path[f"run_decomp fracture-on (scaling, {nd} rank(s), rank 0)"] = r["kernel_launches"]
+    emit("scaling", note=NOT_SCALING, table=table, **res)
+    if torch.cuda.device_count() >= DECOMP_RANKS:
+        with tempfile.TemporaryDirectory() as tmp:
+            logs = launch_ranks([sys.executable, "-m", "subzero_tpu_torch.tools.measure_scaling"],
+                                DECOMP_RANKS, "scaling_nccl", tmp, 600, one_card_a_rank=True)
+            emit("scaling_nccl", **json.loads(open(logs[0]).read().strip().splitlines()[-1]))
+    else:
+        print(f"scaling: {NOT_SCALING}; the nccl run needs {DECOMP_RANKS} cards, one a "
+              f"rank, and this machine has {torch.cuda.device_count()}", flush=True)
+
+
+def phase_lifecycle_overhead(dev, report):
+    """tools/lifecycle_overhead.py through the port's tool as 4 gloo ranks
+    sharing the card: run_decomp of the JAX tool's field at 1 rank and at 4,
+    the rows the host passes are handed, their count and mean time."""
+    torch.cuda.empty_cache()
+    figs, _ = tool_ranks("lifecycle_overhead", [], "lifecycle_overhead", 600)
+    runs = figs[0]["runs"]
+    for nd, r in runs.items():
+        if r["kernel_launches"] != r["steps"] + r["host_pass_launches"]:
+            raise AssertionError(f"lifecycle_overhead at {nd} rank(s): "
+                                 f"{r['kernel_launches']} launches in {r['steps']} steps")
+        report["launches_by_path"][f"run_decomp (lifecycle_overhead, {nd} rank(s), rank 0)"] = \
+            r["kernel_launches"]
+    emit("lifecycle_overhead", note=NOT_SCALING, backend=figs[0]["backend"],
+         runs=runs, gathered_rows_by_rank=[f["runs"][str(DECOMP_RANKS)]["gathered_rows"]
+                                           for f in figs])
+
+
 def step_ms(sim, n_steps) -> float:
     from subzero_tpu_torch.simulation import run_scan
 
@@ -2569,6 +2805,8 @@ def main(argv=None) -> int:
         "profile": lambda d, r: phase_profile(d),
         "e2e_shear_flow": phase_e2e_shear_flow,
         "lifecycle_walltime": phase_lifecycle_walltime,
+        "overflow_source": phase_overflow_source, "scaling": phase_scaling,
+        "lifecycle_overhead": phase_lifecycle_overhead,
     }
     seconds = {}
     for name in PHASES + EXTRA_PHASES:

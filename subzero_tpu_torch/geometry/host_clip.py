@@ -315,6 +315,28 @@ def _with_retries_py(Sc, Cc, op, max_tries=8):
     raise RuntimeError(f"polygon boolean '{op}' failed after {max_tries} perturbations")
 
 
+def _without_spikes(ring):
+    """The ring without repeated vertices and zero-width spikes (a vertex
+    whose two neighbours coincide: an edge traced out and back).  Neither
+    bounds any area, so the region is the same; no perturbation resolves
+    them, since both ends of the spike move together."""
+    pts = [tuple(p) for p in np.asarray(ring, float)]
+    k = 0
+    while len(pts) > 3 and k < len(pts):
+        n = len(pts)
+        a, b, c = pts[k - 1], pts[k], pts[(k + 1) % n]
+        if a == b:
+            del pts[k]
+            k = max(k - 1, 0)
+        elif a == c:
+            for i in sorted({k, (k + 1) % n}, reverse=True):
+                del pts[i]
+            k = max(k - 2, 0)
+        else:
+            k += 1
+    return np.asarray(pts)
+
+
 def _with_retries(Sc, Cc, op, max_tries=8):
     """Boolean via the native C++ kernel (subzero_tpu_torch/native/clip.cpp, the
     same algorithm + retry schedule) when available; pure-Python fallback
@@ -322,7 +344,9 @@ def _with_retries(Sc, Cc, op, max_tries=8):
     defeats the native kernel's fixed-direction ladder falls through to
     the Python ladder, whose rotated perturbations break alignment-locked
     cases (observed in ridge/raft differences of fracture siblings that
-    share a vertex)."""
+    share a vertex).  Where that ladder fails too, a ring with a repeated
+    vertex or a zero-width spike is cleaned of them and the boolean tried
+    again (the JAX package raises there: ROADMAP C)."""
     from .. import native
 
     try:
@@ -331,9 +355,15 @@ def _with_retries(Sc, Cc, op, max_tries=8):
         )
     except RuntimeError:
         rings = None
-    if rings is None:
+    if rings is not None:
+        return rings
+    try:
         return _with_retries_py(Sc, Cc, op, max_tries)
-    return rings
+    except RuntimeError:
+        S2, C2 = _without_spikes(Sc), _without_spikes(Cc)
+        if len(S2) == len(Sc) and len(C2) == len(Cc):
+            raise
+        return _with_retries(S2, C2, op, max_tries)
 
 
 def intersect(S, C):

@@ -47,7 +47,7 @@ from .multihost import Comm, is_io_process, pack_rows, unpack_rows
 __all__ = [
     "Decomp", "make_decomp", "distribute", "gather", "build_decomp_step",
     "build_decomp_step_halves", "build_decomp_segment",
-    "run_decomp", "measure_decomp_scaling",
+    "run_decomp", "measure_decomp_scaling", "time_decomp_steps",
     "Decomp2D", "make_decomp_2d", "distribute_2d", "build_decomp_step_2d",
 ]
 
@@ -1004,6 +1004,45 @@ def run_decomp(sim, dec, start_tstep: int = 0, callback=None, collect=None):
     return sim
 
 
+def time_decomp_steps(sim, dec, n_steps: int, segment: bool = False):
+    """Steps/s of the decomposed step on ``dec`` from ``sim``'s state, on
+    every rank of ``dec``: one step first (warm-up), then ``n_steps`` timed
+    ones.  ``segment=True`` times ``build_decomp_segment`` (what
+    ``run_decomp`` runs; a fuse mark can end it early) instead of
+    ``build_decomp_step``.  Returns (steps/s, the timed steps, this rank's
+    ``Comm.stats`` change over the timed steps)."""
+    m = sim.model
+    floes_d = _dec_distribute(m.floes, m.domain, dec)
+    ocean, domain = m.ocean, m.domain
+    dev = dec.comm.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if segment:
+        seg = build_decomp_segment(sim, dec)
+        floes_d, ocean, domain = seg(floes_d, ocean, domain, 0, 1)[:3]
+        sync()
+        stats0 = dict(dec.comm.stats)
+        t0 = time.perf_counter()
+        out = seg(floes_d, ocean, domain, 1, 1 + n_steps)
+        sync()
+        done = max(out[3] - 1, 1)
+    else:
+        step = build_decomp_step(sim, dec)
+        floes_d, ocean, domain, _ = step(floes_d, ocean, domain, 0)
+        sync()
+        stats0 = dict(dec.comm.stats)
+        t0 = time.perf_counter()
+        for k in range(1, n_steps + 1):
+            floes_d, ocean, domain, _ = step(floes_d, ocean, domain, k)
+        sync()
+        done = n_steps
+    sps = done / (time.perf_counter() - t0)
+    return sps, done, {k: dec.comm.stats[k] - stats0[k] for k in stats0}
+
+
 def measure_decomp_scaling(
     sim_builder, n_steps: int = 20, axis: str = "x", n_dev=None,
     segment: bool = False,
@@ -1016,7 +1055,8 @@ def measure_decomp_scaling(
     that many x-slabs (the group's size); an (Dx, Dy) tuple -> 2-D slabs.
     The 1-slab case runs on rank 0 alone, through a one-rank subgroup, while
     the others wait.  ``segment=True`` times ``build_decomp_segment`` (what
-    ``run_decomp`` runs) instead of ``build_decomp_step``.
+    ``run_decomp`` runs) instead of ``build_decomp_step``
+    (``time_decomp_steps``).
 
     Returns, on every rank, rank 0's {1: sps, n_dev: sps, "efficiency": e},
     e = sps_D / sps_1 (the same problem, strong scaling; ranks that share a
@@ -1026,10 +1066,6 @@ def measure_decomp_scaling(
     if n_dev is None:
         n_dev = dist.get_world_size() if ranked else 1
     one = dist.new_group([0]) if ranked else None
-
-    def sync(dev):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     res = {}
     for nd in (1, n_dev):
@@ -1042,27 +1078,7 @@ def measure_decomp_scaling(
             dec = make_decomp_2d(m.floes, m.domain, n_dev=nd, group=group)
         else:
             dec = make_decomp(m.floes, m.domain, n_devices=nd, axis=axis, group=group)
-        floes_d = _dec_distribute(m.floes, m.domain, dec)
-        ocean, domain = m.ocean, m.domain
-        dev = dec.comm.device
-        if segment:
-            seg = build_decomp_segment(sim, dec)
-            floes_d, ocean, domain = seg(floes_d, ocean, domain, 0, 1)[:3]
-            sync(dev)
-            t0 = time.perf_counter()
-            out = seg(floes_d, ocean, domain, 1, 1 + n_steps)
-            sync(dev)
-            done = out[3] - 1  # a fuse mark can end the segment early
-            res[nd] = max(done, 1) / (time.perf_counter() - t0)
-        else:
-            step = build_decomp_step(sim, dec)
-            floes_d, ocean, domain, _ = step(floes_d, ocean, domain, 0)
-            sync(dev)
-            t0 = time.perf_counter()
-            for k in range(1, n_steps + 1):
-                floes_d, ocean, domain, _ = step(floes_d, ocean, domain, k)
-            sync(dev)
-            res[nd] = n_steps / (time.perf_counter() - t0)
+        res[nd] = time_decomp_steps(sim, dec, n_steps, segment)[0]
     if ranked:  # every rank returns rank 0's figures
         got = [res]
         dist.broadcast_object_list(got, src=0)

@@ -121,14 +121,17 @@ class Comm:
     device, the decomposition's collectives, and counters of what they did.
 
     ``group`` None is the default group; without an initialised process group
-    the Comm is a single rank whose collectives return their input."""
+    the Comm is a single rank whose collectives return their input.
+    ``device`` None is the card (``resolve_device``).  ``stats["bytes_sent"]``
+    counts every byte this rank sent, ``stats["exchange_bytes"]`` those of
+    the neighbour exchanges (halos and migrants) alone."""
 
-    STATS = ("messages", "bytes_sent", "staging_copies", "reductions",
-             "flag_reductions", "pool_gathers")
+    STATS = ("messages", "bytes_sent", "exchange_bytes", "staging_copies",
+             "reductions", "flag_reductions", "pool_gathers")
 
-    def __init__(self, group=None, device="cpu"):
+    def __init__(self, group=None, device=None):
         self.group = group
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.distributed = dist.is_initialized()
         if self.distributed:
             self.size = dist.get_world_size(group)
@@ -182,8 +185,10 @@ class Comm:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         sent = (lo is not None) + (hi is not None)
+        nbytes = sent * to_lo.numel() * to_lo.element_size()
         self.stats["messages"] += sent
-        self.stats["bytes_sent"] += sent * to_lo.numel() * to_lo.element_size()
+        self.stats["bytes_sent"] += nbytes
+        self.stats["exchange_bytes"] += nbytes
         got = self._from_wire(got)
         return got[0], got[1]
 

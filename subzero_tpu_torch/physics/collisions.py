@@ -847,6 +847,9 @@ class _SlowPairs(NamedTuple):
     shift: torch.Tensor    # [slow_cap, 2]
     regions: ClipRegions   # rows that are not valid hold anything
     n_slow: int            # slow rows in the list (may exceed slow_cap)
+    # [slow_cap] rows whose crossing parity came out odd before the retry
+    # (None when the list had no slow row)
+    parity_bad: torch.Tensor | None
 
 
 def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
@@ -878,6 +881,7 @@ def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
         )
 
     sregions = _empty_regions(slow_cap, clip_cap, dtype, dev)
+    bad1 = None
     if n_slow > 0:
         # most calls have no multi-region/degenerate contacts; otherwise the
         # smallest tier holding every slow pair sizes the batch (the rows
@@ -909,7 +913,7 @@ def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
                 return ext[:slow_cap]
 
             sregions = ClipRegions(*(put(a, b) for a, b in zip(sregions, regs2)))
-    return _SlowPairs(ssel, svalid, ssafe, i1, j1, shift1, sregions, n_slow)
+    return _SlowPairs(ssel, svalid, ssafe, i1, j1, shift1, sregions, n_slow, bad1)
 
 
 def timestep_collisions(
@@ -922,13 +926,21 @@ def timestep_collisions(
     clip_cap: int = DEFAULT_CAP,
     bins: tuple | None = None,
     owned_rows: int | None = None,
+    with_debug: bool = False,
 ) -> CollisionResult:
     """timestep_collisions! (collisions.jl:734-864), batched over the pool.
 
     The slow path and its odd-parity retry branch on the host on the number
     of slow pairs (one synchronisation per step); everything else stays on
     the device with fixed shapes.  ``owned_rows``: see find_candidate_pairs
-    (a rank's halo-extended pool; only the owned rows' results are used)."""
+    (a rank's halo-extended pool; only the owned rows' results are used).
+    ``with_debug``: also return the JAX package's dict of per-capacity
+    counters, each a 0-d tensor on the pool's device, which says which term
+    of the overflow flag fired (``tools/probe_overflow_source.py``):
+    ``pairs_overflow``, ``n_candidates``, ``compact_overflow`` (always False:
+    the compaction branch is not ported), ``n_slow``, ``slow_cap``,
+    ``n_parity_bad`` (before the retry) and ``clip_overflow`` (after it).
+    Returns ``(result, dbg)`` then."""
     N = floes.capacity
     NR = N if owned_rows is None else owned_rows
     V = floes.max_verts
@@ -1076,16 +1088,29 @@ def timestep_collisions(
         remove=remove,
         fuse_with=torch.where(act, fuse_with, -1).to(torch.int32),
     )
-    overflow = (
-        pairs.overflow
-        | (n_slow > slow_cap)
-        | torch.any(torch.where(svalid, sregions.overflow, False))
-    )
-    return CollisionResult(
+    clip_overflow = torch.any(torch.where(svalid, sregions.overflow, False))
+    overflow = pairs.overflow | (n_slow > slow_cap) | clip_overflow
+    result = CollisionResult(
         floes=new_floes,
         stress_instant=torch.where(act[:, None, None], stress_instant, 0.0),
         overflow=overflow,
     )
+    if not with_debug:
+        return result
+
+    def count(x):
+        return torch.tensor(x, dtype=torch.int64, device=dev)
+
+    dbg = {
+        "pairs_overflow": pairs.overflow,
+        "n_candidates": pvalid0.sum(),
+        "compact_overflow": torch.zeros((), dtype=torch.bool, device=dev),
+        "n_slow": count(n_slow),
+        "slow_cap": count(slow_cap),
+        "n_parity_bad": count(0) if slow.parity_bad is None else slow.parity_bad.sum(),
+        "clip_overflow": clip_overflow,
+    }
+    return result, dbg
 
 
 def _encode_partner(j, N: int):

@@ -4,7 +4,8 @@ Every field of CollisionResult (the whole floe pool, the instantaneous
 stress and the overflow flag) is compared on the tests/test_collisions.py
 shapes - floe-floe, walls, topography, open and periodic boundaries, brought
 over by subzero_tpu_torch.convert.  f64, rtol 1e-9 (absolute floor 1e-9 of
-each field's largest magnitude).  The slow path and the candidate-row
+each field's largest magnitude); the per-capacity counters of
+``with_debug=True`` (which term of the overflow flag fired) exactly.  The slow path and the candidate-row
 compaction are held to the reference in test_torch_collisions_slow_path.py.
 """
 
@@ -50,8 +51,10 @@ def _compare(jfl, jdomain, pair_cap, clip_cap=16):
                             collision_settings=CSET, pair_cap=pair_cap,
                             clip_cap=clip_cap, with_debug=True)
     tfl, _, _, tdom, _ = port_state(jfl, jdomain)
-    got = tcol.timestep_collisions(tfl, tdom, port_settings(CONSTS), DT,
-                                   port_settings(CSET), pair_cap, clip_cap)
+    got, tdbg = tcol.timestep_collisions(tfl, tdom, port_settings(CONSTS), DT,
+                                         port_settings(CSET), pair_cap, clip_cap,
+                                         with_debug=True)
+    assert_same_counters(tdbg, dbg)
     assert_fields_close(got.floes, ref.floes, what="floes.")
     np.testing.assert_allclose(
         got.stress_instant.numpy(), np.asarray(ref.stress_instant), rtol=1e-9,
@@ -59,6 +62,15 @@ def _compare(jfl, jdomain, pair_cap, clip_cap=16):
     )
     assert bool(got.overflow) == bool(ref.overflow)
     return ref, dbg
+
+
+def assert_same_counters(got, ref):
+    """The port's with_debug dict equals the JAX package's: the same keys,
+    each a 0-d tensor on the pool's device, the same integer or flag."""
+    assert set(got) == set(ref)
+    for k, v in got.items():
+        assert v.dim() == 0 and v.device.type == "cpu", k
+        assert v.item() == np.asarray(ref[k]).item(), (k, v.item(), ref[k])
 
 
 SHIFTED = [[x + 0.5e4, y] for x, y in CORNER_RECT]

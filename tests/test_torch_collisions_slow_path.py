@@ -20,7 +20,7 @@ from subzero_tpu.physics import collisions as jcol
 from subzero_tpu_torch.geometry.clip import gather_rings, two_cross_pass
 from subzero_tpu_torch.physics import collisions as tcol
 
-from test_collisions import CONSTS, CSET, DT, GRID
+from test_collisions import CONSTS, CSET, DT, GRID, OPEN_DOMAIN
 from test_torch_collisions import _compare, _floes
 from torch_port_helpers import port_settings, port_state
 
@@ -68,6 +68,33 @@ def test_packed_periodic_field_slow_path(case):
         assert int(dbg["n_parity_bad"]) > 0
     if case == "beyond_slow_cap":
         assert bool(ref.overflow)
+
+
+def crowded_ring(n_ring=40, seed=0):
+    """One 12-gon of radius 2e4 m (pool row 0) ringed by ``n_ring`` small
+    squares whose bounding circles reach into its own: floe 0 owns the pairs
+    of the even rows ((i + j) parity), so its row holds n_ring / 2 candidates,
+    more than the 8 rows a floe of ``pair_cap`` = 8N plus the 8 a floe may
+    spill (collisions._rank_select_rows).  Returns the JAX pool (f64)."""
+    rng = np.random.default_rng(seed)
+    th = np.arange(12) * 2 * np.pi / 12
+    polys = [np.stack([2e4 * np.cos(th), 2e4 * np.sin(th)], 1)]
+    for k in range(n_ring):
+        a = 2 * np.pi * k / n_ring + rng.uniform(-0.01, 0.01)
+        cx, cy = 2.1e4 * np.cos(a), 2.1e4 * np.sin(a)
+        polys.append(np.array([[cx - 1.4e3, cy - 1.4e3], [cx + 1.4e3, cy - 1.4e3],
+                               [cx + 1.4e3, cy + 1.4e3], [cx - 1.4e3, cy + 1.4e3]]))
+    return _floes(polys, [0.0] * len(polys), [0.0] * len(polys), N=len(polys))
+
+
+def test_crowded_floe_overflows_its_candidate_row():
+    """A floe with more candidates than its row and the spill list hold
+    fires ``pairs_overflow`` in both packages, with equal counters and
+    fields (the candidates that fit are computed alike)."""
+    jfl = crowded_ring()
+    ref, dbg = _compare(jfl, OPEN_DOMAIN, pair_cap=8 * jfl.capacity)
+    assert bool(dbg["pairs_overflow"]) and bool(ref.overflow)
+    assert int(dbg["n_slow"]) <= int(dbg["slow_cap"])
 
 
 @pytest.mark.parametrize("case", ["inside_first_tier", "parity_retry"])

@@ -54,7 +54,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                     "examples.restart_sim", "parallel", "parallel.decomp",
                     "parallel.multihost", "examples.distributed_shear_flow",
                     "bench", "tools.f32_drift_table", "tools.e2e_shear_flow",
-                    "tools.lifecycle_walltime"):
+                    "tools.lifecycle_walltime", "tools.probe_overflow_source",
+                    "tools.measure_scaling", "tools.lifecycle_overhead"):
             assert "subzero_tpu_torch." + new in names, new
         for name in names:
             importlib.import_module(name)

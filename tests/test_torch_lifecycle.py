@@ -249,3 +249,37 @@ def test_split_floe_skips_a_piece_whose_clip_does_not_resolve(monkeypatch):
         pieces = tlh.split_floe(hf, 0, np.random.default_rng(1), fr,
                                 port_settings(FS), DT)
     assert len(calls) == 3 and 1 <= len(pieces) <= 2
+
+
+# A pair marked to fuse in the 4-rank fracture-on run of
+# tools/measure_scaling.py on the H100 (8 000 floes, f32): the larger floe's
+# ring traces one edge out and back (vertices 4 to 6), a zero-width spike.
+SPIKED = np.array([[334958.4375, 280803.3125], [334930.375, 280260.46875],
+                   [337006.46875, 277897.625], [337621.03125, 277563.03125],
+                   [338449.375, 280195.03125], [338208.5, 280237.03125],
+                   [338449.375, 280195.03125], [339096.15625, 281686.03125],
+                   [335012.15625, 281165.5625], [334969.71875, 281022.8125]])
+PARTNER = np.array([[339096.0625, 281686.8125], [338449.25, 280195.84375],
+                    [337620.71875, 277563.875], [339101.8125, 276757.375],
+                    [339399.78125, 276915.5625], [340265.34375, 279644.65625],
+                    [339463.1875, 281733.59375]])
+
+
+def test_boolean_of_a_ring_with_a_zero_width_spike():
+    """No perturbation resolves a spike (both of its ends move together):
+    the JAX package's host clip raises on this pair, and with it the fuse
+    pass (ROADMAP C).  The port's drops the spike, which bounds no area, and
+    gives what the JAX package's gives for the ring without it."""
+    from subzero_tpu.geometry import host_clip as jclip
+    from subzero_tpu_torch.geometry import host_clip as tclip
+
+    clean = np.delete(SPIKED, [5, 6], axis=0)
+    assert tclip._without_spikes(SPIKED).tolist() == clean.tolist()
+    assert tclip._without_spikes(PARTNER).tolist() == PARTNER.tolist()
+    for op in ("union", "intersect", "difference"):
+        with pytest.raises(RuntimeError, match="failed after 8 perturbations"):
+            getattr(jclip, op)(SPIKED, PARTNER)
+        got = getattr(tclip, op)(SPIKED, PARTNER)
+        want = getattr(jclip, op)(clean, PARTNER)
+        assert len(got) == len(want) == 1, op
+        np.testing.assert_array_equal(got[0], want[0], err_msg=op)
