@@ -30,7 +30,8 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             between two events) with an empty kernel's beside them as the
             floor, call_ms (the whole Python call), plain_ms, and bound_ms
             from the batch's own bytes and operations
-  slice     shear_flow_500, f32, 200 steps of run_scan on the card
+  slice     shear_flow_500, f32, 200 steps of run_scan on the card (the
+            step's graph captured before the clock starts)
   card_cpu  shear_flow_500, f64, 20 steps on the card (kernel) and on the
             CPU (plain versions): centroids, velocities, ocean stresses
   determinism  two 50-step runs on the card are bitwise equal
@@ -56,6 +57,18 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pool at step 0 and after the run, the step's batch through the
             kernel and its plain version, and pair_overlaps and
             pair_interactions on the card against a CPU copy
+  graph     the step as a CUDA graph (step_graph.StepGraph, which
+            run_scan, run and the bench replay on the card) against the same
+            steps launched eagerly: one eager step of each program
+            under torch.cuda.set_sync_debug_mode("error"); shear_flow_500
+            (200 steps) and many_floes_8000 binned (50) through run_scan and
+            the life-cycle run (601 steps of run, the lifecycle phase's) all
+            bitwise equal in f32, one kernel launch a step each side; host
+            synchronisations between run_scan's first and last step (none)
+            and over the life-cycle run's first 100 steps by source line
+            (none from the step's body), graph and eager; torch.profiler's
+            host launch calls and device kernels a step, graph and eager;
+            capture seconds and recaptures
   lifecycle_card_cpu  the same configuration and width, f64, with the
             fracture pass's deformation on (so that run calls
             pair_interactions) and weaker ice (so that the first pass
@@ -100,9 +113,12 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pairs equal to the JAX field's, end state finite and no floe
             lost, one kernel launch a step; two 20-step runs of
             many_floes_8000 bitwise equal; the kernel against its plain
-            version, and its times, at the 16k and 32k batches; the contact
+            version, and its times, at the 16k and 32k batches; the slow
+            path's device time at its full batch (8k, 16k, 32k); the contact
             sums (collisions._segment_sum) card against CPU, bitwise, at the
-            32k pool's rows; the bench's JSON line
+            32k pool's rows; the bench's JSON line, with each
+            configuration's capture seconds and peak memory (allocated, and
+            reserved with the graphs' pool)
   f32_drift tests/test_f32_drift.py's gate through the kernel: head_on and
             three_floes, 5 000 f32 steps each (one process a scenario, both
             at once), drift within the JAX bounds
@@ -141,17 +157,24 @@ last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --parent _parent     # also time an older kernel
 
-``--parent DIR`` names a checkout of an earlier commit of this repository
-whose kernel took materialised ring batches (two_cross_cuda(pv, pn, qv, qn,
-perturb)): a subprocess builds that kernel from DIR and times it on the same
-batches with the same functions, so both kernels are measured on one card in
-one run.
+``--parent DIR`` names a checkout of an earlier commit of this repository.
+With the bench phase, bench's five configurations run in turns, this tree's
+(the step's graph) and that checkout's own (a process of its code), with
+step_ms and peak memory of each.  Without it, for a commit whose kernel took
+materialised ring batches (two_cross_cuda(pv, pn, qv, qn, perturb)), a
+subprocess builds that kernel from DIR and times it on the same batches with
+the same functions, so both kernels are measured on one card in one run.
+
+On the card run_scan and run replay the step captured as a CUDA graph; each
+graph runs its program once eagerly before the capture (a warm-up), and those
+kernel launches are counted apart from a path's own (``path_launches``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import os
 import statistics
@@ -165,7 +188,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
-          "many_floes_2000", "binned", "overlaps", "lifecycle",
+          "many_floes_2000", "binned", "overlaps", "lifecycle", "graph",
           "lifecycle_card_cpu", "writers", "restart", "bench", "f32_drift",
           "decomp")
 EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime", "overflow_source",
@@ -506,6 +529,81 @@ def time_parent_kernel(parent_dir: str, batches: dict) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+# a checkout's own bench on one configuration, in a process of its own: the
+# field built once, then bench.measure twice; one JSON line
+PARENT_BENCH = """
+import json, sys, torch
+from subzero_tpu_torch import bench
+cfg = bench.CONFIGS[sys.argv[1]]
+sim = bench.build_sim(cfg["n"], cfg["L"], bench.DX, bins=cfg["bins"], device="cuda")
+out = []
+for _ in range(2):
+    r = bench.measure(sim, cfg["n_steps"])
+    r["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    out.append(r)
+print(json.dumps(out))
+"""
+BENCH_KEYS = ("step_ms", "pairs_per_s", "n_overflow", "peak_mem_gib",
+              "peak_reserved_gib", "capture_s", "capture_pool_gib")
+
+
+def bench_in_turns(parent_dir: str, dev) -> dict:
+    """bench's five configurations, timed as the bench times them (best of
+    its timed runs after a warm-up), this tree's (the step's graph) and the
+    checkout's at ``parent_dir`` (its own code: the eager step) in turns in
+    this call: this tree, the checkout twice (a process of its own code on
+    its own field), this tree again.  step_ms and peak memory of each."""
+    from subzero_tpu_torch import bench
+
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(parent_dir))
+    out = {}
+    for name, cfg in bench.CONFIGS.items():
+        sim = bench.build_sim(cfg["n"], cfg["L"], bench.DX, bins=cfg["bins"], device=dev)
+        ours = [bench.measure(sim, cfg["n_steps"])]
+        torch.cuda.empty_cache()
+        proc = subprocess.run([sys.executable, "-c", PARENT_BENCH, name],
+                              cwd=os.path.abspath(parent_dir), env=env,
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the bench of {parent_dir} on {name} failed:\n"
+                               + proc.stdout[-3000:] + proc.stderr[-3000:])
+        parent = json.loads(proc.stdout.strip().splitlines()[-1])
+        ours.append(bench.measure(sim, cfg["n_steps"]))
+        out[name] = {
+            "order": "this tree, parent, parent, this tree",
+            "this_tree_graph": [{k: r.get(k) for k in BENCH_KEYS} for r in ours],
+            "parent_eager": [{k: r.get(k) for k in BENCH_KEYS} for r in parent],
+        }
+        del sim
+        torch.cuda.empty_cache()
+    return out
+
+
+_WARMUPS_AT_RESET = [0]
+
+
+def reset_launches() -> None:
+    """Set the kernel's launch count to 0 just before a path's run."""
+    from subzero_tpu_torch import step_graph
+    from subzero_tpu_torch.geometry import two_cross
+
+    two_cross.reset_launch_count()
+    _WARMUPS_AT_RESET[0] = step_graph.warmup_launch_count()
+
+
+def path_launches() -> int:
+    """The kernel's launches since ``reset_launches`` that the path's steps,
+    passes and writers made: the count, less the launches of the step
+    graphs' warm-ups (a StepGraph runs each program once eagerly, outputs
+    dropped, before it captures it; those launches are real, and the
+    kernels line reports them apart, ``graph_warmup_launches``)."""
+    from subzero_tpu_torch import step_graph
+    from subzero_tpu_torch.geometry import two_cross
+
+    return two_cross.launch_count() - (step_graph.warmup_launch_count()
+                                       - _WARMUPS_AT_RESET[0])
+
+
 def check_finite(sim) -> None:
     for name, tree in (("floes", sim.model.floes), ("ocean", sim.model.ocean)):
         for f, x in zip(tree._fields, tree):
@@ -514,18 +612,81 @@ def check_finite(sim) -> None:
 
 
 def same_state(a, b, what) -> None:
-    """Two runs' floes and ocean equal to the bit."""
+    """Two runs' floes and ocean equal to the bit (of two Simulations, or
+    their models)."""
+    a, b = getattr(a, "model", a), getattr(b, "model", b)
     for name in ("floes", "ocean"):
-        ta, tb = getattr(a.model, name), getattr(b.model, name)
+        ta, tb = getattr(a, name), getattr(b, name)
         for f, x, y in zip(ta._fields, ta, tb):
             if not torch.equal(x, y):
                 raise AssertionError(f"{what}: {name}.{f} differs between two runs")
 
 
-def run_timed(sim, n_steps):
-    """run_scan of n_steps on the card, launch counts reset just before;
-    returns the advanced sim and its numbers."""
+def capture_steps(sim, n_steps) -> float:
+    """Capture the programs of ``sim``'s first ``n_steps`` steps into the
+    graphs ``sim`` keeps (each warmed up first); the seconds that took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = sim.step_graph()
+    graph.prepare({graph.step_prog(t) for t in range(n_steps)})
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def replay_from(sim, n_steps, **kw):
+    """run_scan of ``n_steps`` on ``sim`` itself, so that it replays the
+    graphs ``sim`` keeps; returns the end model and puts ``sim``'s model
+    back as it was."""
+    from subzero_tpu_torch.simulation import run_scan
+
+    m0 = sim.model
+    run_scan(sim, n_steps, **kw)
+    end, sim.model = sim.model, m0
+    return end
+
+
+def b1_under_replay(fn, n_expected, tries=3) -> int:
+    """The narrow-phase kernel's launches over ``fn`` (graph replays),
+    counted two ways: by its wrapper (a replay adds the launches its graph
+    captured) and as the ``two_cross_kernel`` runs the card made, by
+    torch.profiler.  Both must be ``n_expected``; returns the card's count.
+    A trace now and then drops device events: such a trace is taken
+    again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from subzero_tpu_torch.geometry import two_cross
+
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        l0 = two_cross.launch_count()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counted = two_cross.launch_count() - l0
+        if counted != n_expected:
+            raise AssertionError(f"the wrapper counted {counted} launches, "
+                                 f"expected {n_expected}")
+        ran = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "two_cross_kernel" in e.key)
+        if ran == n_expected:
+            return ran
+    raise AssertionError(f"the card ran two_cross_kernel {ran} times in the last of "
+                         f"{tries} traces; the wrapper counted {n_expected}")
+
+
+def b1_per_replay(graph) -> dict:
+    """Each program a StepGraph captured, replayed once: the launches its
+    replay adds to the wrapper's count, held against the card's runs of the
+    kernel (b1_under_replay)."""
+    return {"/".join(map(str, prog)): b1_under_replay(lambda: graph.replay(prog), n)
+            for prog, n in sorted(graph.captured_launches().items(), key=str)}
+
+
+def run_timed(sim, n_steps):
+    """run_scan of n_steps on the card, replaying a step graph captured
+    before the clock starts; launch counts reset just before.  Returns the
+    advanced sim and its numbers."""
     from subzero_tpu_torch.physics.collisions import find_candidate_pairs
     from subzero_tpu_torch.simulation import run_scan
 
@@ -533,16 +694,16 @@ def run_timed(sim, n_steps):
     n_active = int(fl.count())
     pairs_per_step = int(find_candidate_pairs(fl, sim.model.domain,
                                               sim.pair_cap, sim.bins).valid.sum())
-    torch.cuda.synchronize()
-    two_cross.reset_launch_count()
+    capture_s = capture_steps(sim, n_steps)
+    reset_launches()
     t0 = time.perf_counter()
     sim, _ = run_scan(sim, n_steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = two_cross.launch_count()
+    launches = path_launches()
     check_finite(sim)
     n_after = int(sim.model.floes.count())
-    if launches < n_steps:
+    if launches != n_steps:
         raise AssertionError(f"kernel launched {launches} times in {n_steps} steps")
     if n_after != n_active:
         raise AssertionError(f"active floes {n_active} -> {n_after}")
@@ -556,6 +717,8 @@ def run_timed(sim, n_steps):
         "active_floes": n_after,
         "n_overflow": sim.n_overflow,
         "kernel_launches": launches,
+        "capture_seconds": capture_s,
+        "graph": sim.run_stats["graph"],
     }
 
 
@@ -752,23 +915,25 @@ def phase_binned(dev, report):
         raise AssertionError(f"{nums['n_overflow']} overflow steps on many_floes_8000")
     report["launches_by_path"]["run_scan step (binned)"] = nums["kernel_launches"]
 
-    # dense against binned, in turns (host time drifts within a call)
+    # dense against binned, in turns (host time drifts within a call); each
+    # run replays the graphs its Simulation captured in the warm-up
     def ms(s, n=30):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        run_scan(fork(s), n)
+        replay_from(s, n)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t) / n
 
-    run_scan(fork(dense_sim), 3)
+    replay_from(sim, 3)
+    replay_from(dense_sim, 3)
     step_ms_8000 = {"binned": [], "dense": []}
     for _ in range(2):
         step_ms_8000["binned"].append(ms(sim))
         step_ms_8000["dense"].append(ms(dense_sim))
     small = build_sim(2000, 2e5, 2e3, device=dev, dtype=torch.float32)
     small_binned = build_sim(2000, 2e5, 2e3, device=dev, dtype=torch.float32, bins=True)
-    run_scan(fork(small), 3)
-    run_scan(fork(small_binned), 3)
+    replay_from(small, 3)
+    replay_from(small_binned, 3)
     step_ms_2000 = {"binned": [], "dense": []}
     for _ in range(2):
         step_ms_2000["binned"].append(ms(small_binned))
@@ -882,16 +1047,15 @@ def counters_card_vs_cpu(sim) -> dict:
     flags), and the result as the step uses it (forces, torques, overlap
     and stress within COUNTERS_RESULT_TOL of their largest; overflow,
     removal and fuse marks exactly)."""
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.physics.collisions import timestep_collisions
 
     t0 = time.perf_counter()
     fl, dom = sim.model.floes, sim.model.domain
     args = (sim.consts, float(sim.dt), sim.collision_settings, sim.pair_cap,
             sim.clip_cap, sim.bins)
-    two_cross.reset_launch_count()
+    reset_launches()
     card, dbg = timestep_collisions(fl, dom, *args, with_debug=True)
-    launches = two_cross.launch_count()
+    launches = path_launches()
     cpu, cdbg = timestep_collisions(*cpu_copy(fl, dom), *args, with_debug=True)
     got = {k: v.item() for k, v in dbg.items()}
     want = {k: v.item() for k, v in cdbg.items()}
@@ -923,15 +1087,14 @@ def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
     life-cycle run leaves): then it must have run out on both sides, the
     rows it kept are compared, and a pair with a region that only one side
     lists is reported apart (drop_borderline_rows)."""
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.physics.collisions import pair_interactions, pair_overlaps
 
     fl, dom = sim.model.floes, sim.model.domain
     fl_cpu, dom_cpu = cpu_copy(fl, dom)
 
-    two_cross.reset_launch_count()
+    reset_launches()
     i, j, area, valid, ovf = pair_overlaps(fl, dom, sim.pair_cap, sim.clip_cap, bins)
-    n_po = two_cross.launch_count()
+    n_po = path_launches()
     ci, cj, carea, cvalid, covf = pair_overlaps(fl_cpu, dom_cpu, sim.pair_cap,
                                                 sim.clip_cap, bins)
     if bool(ovf) != bool(covf) or (bool(ovf) and not full_ok):
@@ -941,10 +1104,10 @@ def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
         sorted_valid_rows({"i": ci, "j": cj, "area": carea}, cvalid, ("i", "j")),
         ("i", "j"), ("area",), f64)
 
-    two_cross.reset_launch_count()
+    reset_launches()
     rows = pair_interactions(fl, dom, sim.consts, float(sim.dt), sim.pair_cap,
                              sim.clip_cap, bins)
-    n_pi = two_cross.launch_count()
+    n_pi = path_launches()
     crows = pair_interactions(fl_cpu, dom_cpu, sim.consts, float(sim.dt),
                               sim.pair_cap, sim.clip_cap, bins)
     if bool(rows["overflow"]) != bool(crows["overflow"]) or (
@@ -995,12 +1158,13 @@ def phase_overlaps(dev, report):
          step_0_counters_card_vs_cpu=counters, **out)
 
 
-def count_host_syncs(fn):
+def count_host_syncs(fn, top=10):
     """Run ``fn`` with PyTorch's synchronisation warnings on and count them
     by the source line that made them: every blocking read of the device by
     the host (item, tolist, cpu, a boolean test or a boolean index of a
     tensor, nonzero) and every blocking copy to it.  Launches through ctypes
-    are not seen.  Returns (fn's result, count, the ten largest sources)."""
+    are not seen.  Returns (fn's result, count, the ``top`` largest sources;
+    None: all)."""
     import collections
 
     torch.cuda.set_sync_debug_mode("warn")
@@ -1013,7 +1177,7 @@ def count_host_syncs(fn):
     by = collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
         if "synchroniz" in str(w.message))
-    return out, sum(by.values()), dict(by.most_common(10))
+    return out, sum(by.values()), dict(by.most_common(top))
 
 
 class PoolTransfers:
@@ -1083,7 +1247,6 @@ def lifecycle_batch_checks(sim, key, report) -> dict:
 
 def phase_lifecycle(dev, report):
     from subzero_tpu_torch import native
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import run
 
     n_dt = LIFECYCLE_N_DT
@@ -1102,14 +1265,15 @@ def phase_lifecycle(dev, report):
         with PoolTransfers() as transfers, warnings.catch_warnings():
             warnings.simplefilter("ignore")  # overflow and pool-full notes
             torch.cuda.synchronize()
-            two_cross.reset_launch_count()
+            reset_launches()
             t0 = time.perf_counter()
             sim = run(sim)
-            launches = two_cross.launch_count()
+            launches = path_launches()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         runs.append((sim, seconds, launches, transfers))
     (a, seconds, launches, transfers), (b, seconds_b, _, _) = runs
+    report["lifecycle_run"] = a  # the graph phase holds it against eager steps
     for f, x, y in zip(a.model.floes._fields, a.model.floes, b.model.floes):
         if not torch.equal(x, y):
             raise AssertionError(f"floes.{f} differs between two runs from one seed")
@@ -1157,6 +1321,225 @@ def phase_lifecycle(dev, report):
          native_clip_served=native.available(), **figures)
 
 
+# the step graph against the same steps launched eagerly, bitwise (f32)
+GRAPH_CONFIGS = {"shear_flow_500": dict(n=500, L=1e5, bins=False, n_steps=200),
+                 "many_floes_8000": dict(n=8000, L=4e5, bins=True, n_steps=50)}
+GRAPH_SYNC_STEPS = 50
+GRAPH_PROFILE_STEPS = 20
+# where a step reads nothing on the host any more (their lines must not show
+# among a life-cycle run's synchronisations)
+STEP_BODY_FILES = ("physics/collisions.py", "physics/coupling.py",
+                   "physics/update_floe.py", "physics/simplification.py",
+                   "geometry/clip.py", "geometry/two_cross.py", "core/domain.py",
+                   "step_graph.py")
+
+
+def graph_against_eager(sim, name) -> dict:
+    """run_scan of the configuration's steps from one state, replaying the
+    step's graph (captured before the clock starts) and launching the same
+    steps eagerly (``_eager``): end states equal to the bit, one kernel
+    launch a step on each side; ms a step of each.  Then the graph's run
+    again under torch.profiler: the card ran the kernel once a step, as the
+    wrapper's count says."""
+    from subzero_tpu_torch.simulation import build_step, run_scan
+
+    n = GRAPH_CONFIGS[name]["n_steps"]
+    # a synchronisation inside the step raises here, before any capture
+    step, m = build_step(sim), sim.model
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in (0, 1):  # the coupling step and the plain step
+            step(m.floes, m.ocean, m.domain, t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    capture_s = capture_steps(sim, n)
+    graph = sim.step_graph()
+    out = {"n_steps": n, "capture_seconds": capture_s,
+           "captures": graph.stats["captures"],
+           "capture_pool_gib": {"/".join(map(str, p)): b / 2**30
+                                for p, b in graph.capture_pool_bytes.items()}}
+    ends = {}
+    for how in ("graph", "eager"):
+        reset_launches()
+        t0 = time.perf_counter()
+        if how == "graph":
+            end = replay_from(sim, n)
+        else:
+            end = run_scan(fork(sim), n, _eager=True)[0].model
+        torch.cuda.synchronize()
+        out[f"{how}_step_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        if path_launches() != n:
+            raise AssertionError(f"{name} ({how}): {path_launches()} launches in {n} steps")
+        ends[how] = end
+    same_state(ends["graph"], ends["eager"], f"{name}: graph against eager")
+    if not torch.equal(ends["graph"].domain.vals, ends["eager"].domain.vals):
+        raise AssertionError(f"{name}: domain differs between graph and eager")
+    out["kernel_runs_on_the_card"] = b1_under_replay(lambda: replay_from(sim, n), n)
+    if graph.stats["captures"] != out["captures"]:
+        raise AssertionError(f"{name}: run_scan captured again: {graph.stats}")
+    out.update(bitwise_equal=True, kernel_launches_per_step=1,
+               recaptures=graph.stats["recaptures"],
+               kernel_runs_per_replay=b1_per_replay(graph))
+    return out
+
+
+def launch_profile(fn, n) -> dict:
+    """torch.profiler over ``fn`` (n steps): the host's CUDA launch calls a
+    step by name (kernel launches and graph launches), and the device's
+    kernels a step and their busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    avgs = prof.key_averages()
+    api = {e.key: e.count / n for e in avgs
+           if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch"))}
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    return {"host_launch_calls_per_step": api,
+            "device_kernels_per_step": sum(e.count for e in kernels) / n,
+            "device_busy_ms_per_step": busy_ms / n,
+            "wall_ms_per_step_profiled": wall_ms / n,
+            "device_busy_share": busy_ms / wall_ms}
+
+
+def coupling_clip_widths_card(sim) -> dict:
+    """The coupling's cell clip on 16 vertex slots against the full width,
+    on the card (the step takes the full width; the JAX package picks 16
+    slots by a lax.cond when every ring fits)."""
+    from subzero_tpu_torch.physics import coupling as C
+
+    f, g, d = sim.model.floes, sim.model.grid, sim.model.domain
+    cap = sim.cell_cap
+    cx0 = torch.floor((f.centroid[:, 0] - g.x0) / g.dx + 0.5).long()
+    cy0 = torch.floor((f.centroid[:, 1] - g.y0) / g.dy + 0.5).long()
+    offs = torch.arange(cap, device=f.verts.device) - cap // 2
+    seen, clip = [], C._clip_area_to_rects
+    C._clip_area_to_rects = lambda v, n, *r: seen.append(r) or clip(v, n, *r)
+    try:
+        C._floe_cell_areas(f, g, d, cap, cx0, cy0, offs)
+    finally:
+        C._clip_area_to_rects = clip
+    full = clip(f.verts, f.nverts, *seen[0])
+    narrow = clip(f.verts[:, :16], f.nverts, *seen[0])
+    return {"largest_ring": int(f.nverts.max()), "bitwise_equal": torch.equal(full, narrow),
+            "max_abs_diff": float((full - narrow).abs().max())}
+
+
+def phase_graph(dev, report):
+    """The step as a CUDA graph (subzero_tpu_torch/step_graph.py) against
+    the same steps launched eagerly: shear_flow_500 (200 steps) and
+    many_floes_8000 binned (50 steps) through run_scan, and the life-cycle
+    run (601 steps of run, with slow pairs, parity retries and fuse passes),
+    bitwise in f32; host synchronisations between run_scan's first and last
+    step (none) and a life-cycle run's by source line; host launch calls
+    and device kernels a step by torch.profiler."""
+    from subzero_tpu_torch import simulation
+    from subzero_tpu_torch.simulation import run, run_scan
+
+    out = {}
+    for name, cfg in GRAPH_CONFIGS.items():
+        sim = build_sim(cfg["n"], cfg["L"], 2e3, device=dev, dtype=torch.float32,
+                        bins=cfg["bins"])
+        out[name] = graph_against_eager(sim, name)
+        # the card's own count of the kernel's runs under replay
+        report["launches_by_path"][f"run_scan step, graph replay (graph, {name})"] = \
+            out[name]["kernel_runs_on_the_card"]
+        report["runs_on_the_card"][f"{name}'s programs, one replay each"] = \
+            out[name]["kernel_runs_per_replay"]
+        if name == "shear_flow_500":
+            # between run_scan's first and last step nothing is read: the one
+            # read is n_overflow's, after the last step
+            end_line = next(i for i, ln in enumerate(
+                open(simulation.__file__).read().splitlines(), 1)
+                if "sim.n_overflow = int(n_over)" in ln)
+            end_src = f"{os.path.relpath(simulation.__file__)}:{end_line}"
+            _, syncs, sources = count_host_syncs(
+                lambda: replay_from(sim, GRAPH_SYNC_STEPS), top=None)
+            within = syncs - sources.get(end_src, 0)
+            if within != 0 or syncs > 1:
+                raise AssertionError(f"run_scan read the device {within} times between "
+                                     f"its first and last step: {sources}")
+            _, e_syncs, e_sources = count_host_syncs(
+                lambda: run_scan(fork(sim), GRAPH_SYNC_STEPS, _eager=True), top=None)
+            n = GRAPH_PROFILE_STEPS
+            out[name].update(
+                run_scan_syncs={"steps": GRAPH_SYNC_STEPS, "graph": syncs,
+                                "graph_between_first_and_last_step": within,
+                                "graph_sources": sources, "eager": e_syncs,
+                                "eager_sources": e_sources},
+                profile={"graph": launch_profile(lambda: replay_from(sim, n), n),
+                    "eager": launch_profile(
+                        lambda: run_scan(fork(sim), n, _eager=True), n)},
+                coupling_clip_16_slots=coupling_clip_widths_card(sim))
+        del sim
+        torch.cuda.empty_cache()
+
+    # the life-cycle run: the lifecycle phase's (graph) against eager steps
+    base = build_many_floes(1000, device=dev, dtype=torch.float32, n_dt=LIFECYCLE_N_DT)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = report.get("lifecycle_run") or run(fork(base))
+        t0 = time.perf_counter()
+        e = run(fork(base), _eager=True)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    same_state(g, e, "life-cycle run: graph against eager")
+    for k in ("steps", "segments", "host_pass_count", "rng_state", "max_floe_id"):
+        if g.run_stats[k] != e.run_stats[k]:
+            raise AssertionError(f"life-cycle run: {k} differs, graph {g.run_stats[k]}, "
+                                 f"eager {e.run_stats[k]}")
+    if g.n_overflow != e.n_overflow:
+        raise AssertionError(f"life-cycle run: n_overflow {g.n_overflow} vs {e.n_overflow}")
+    st = g.run_stats
+    # every program of the run's graph (the whole step, and the halves of
+    # the ridge/raft steps): one replay adds what the card ran.  They are
+    # captured anew on the run's end state: under torch.profiler, a replay
+    # of a graph captured in an earlier phase crashed inside the launch
+    # (after the phases before this one had profiled and dropped other
+    # graphs), while its plain replays ran
+    progs = g.step_graph().captured_launches()
+    fresh = fork(g)
+    fresh.step_graph().prepare(set(progs))
+    if fresh.step_graph().captured_launches() != progs:
+        raise AssertionError(f"life-cycle programs captured anew hold other launches: "
+                             f"{fresh.step_graph().captured_launches()} vs {progs}")
+    per_replay = b1_per_replay(fresh.step_graph())
+    del fresh
+    report["runs_on_the_card"]["life-cycle run's programs, one replay each"] = per_replay
+    life = {"steps": st["steps"], "bitwise_equal": True, "segments": st["segments"],
+            "kernel_runs_per_replay": per_replay,
+            "host_pass_count": st["host_pass_count"], "n_overflow": g.n_overflow,
+            "graph": st["graph"], "graph_seconds": st["seconds"],
+            "eager_seconds": eager_s}
+
+    # synchronisations a step over its first 100 steps, by source line
+    def syncs_of(eager):
+        short = fork(base)
+        short.n_dt = 99
+        short, n_syncs, src = count_host_syncs(lambda: run(short, _eager=eager), top=None)
+        return n_syncs / short.run_stats["steps"], src
+
+    life["host_syncs_per_step_first_100_steps"], life["host_sync_sources"] = syncs_of(False)
+    body = {k: v for k, v in life["host_sync_sources"].items()
+            if any(f in k for f in STEP_BODY_FILES)}
+    if body:
+        raise AssertionError(f"the step body read the device: {body}")
+    life["eager_host_syncs_per_step_first_100_steps"], life["eager_host_sync_sources"] = \
+        syncs_of(True)
+    # what a later slice needs to put the slow path's tiers back on the
+    # device: CUDA graph conditional (IF) nodes through PyTorch
+    cond = {"torch.cuda.CUDAGraph.begin_capture_to_if_node":
+            hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
+            "cuda_runtime": torch.version.cuda}
+    emit("graph", dtype="float32", **out, lifecycle=life, conditional_nodes=cond)
+
+
 def fracture_margins(floes, sim):
     """For the state a fracture pass would see: which floes it would
     fracture (ids), how many it would at the yield curve's default ice
@@ -1191,7 +1574,6 @@ def fracture_margins(floes, sim):
 
 
 def phase_lifecycle_card_cpu(dev, report):
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import build_step, run
 
     def counted_run(sim, where, **kw):
@@ -1199,9 +1581,9 @@ def phase_lifecycle_card_cpu(dev, report):
         just before it and read just after."""
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            two_cross.reset_launch_count()
+            reset_launches()
             sim = run(sim, **kw)
-            n = two_cross.launch_count()
+            n = path_launches()
         if where == "cpu" and n:
             raise AssertionError(f"the CPU run launched the kernel {n} times")
         return sim, n
@@ -1416,7 +1798,6 @@ def eulerian_card_vs_cpu(model, dims) -> dict:
 
 def phase_writers(dev, report):
     from subzero_tpu_torch.examples import simple_strait
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import run
 
     n_dt = 200  # the example runs 5 000
@@ -1450,11 +1831,11 @@ def phase_writers(dev, report):
 
         def timed_write_data(*a, **kw):
             torch.cuda.synchronize()  # the steps queued before are not the writers'
-            l0, t0 = two_cross.launch_count(), time.perf_counter()
+            l0, t0 = path_launches(), time.perf_counter()
             write_data(*a, **kw)
             torch.cuda.synchronize()
             stats["write_data_seconds"] += time.perf_counter() - t0
-            stats["launches"] += two_cross.launch_count() - l0
+            stats["launches"] += path_launches() - l0
 
         w.write_data = timed_write_data
 
@@ -1465,12 +1846,12 @@ def phase_writers(dev, report):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # overflow and pool-full notes
             torch.cuda.synchronize()
-            two_cross.reset_launch_count()
+            reset_launches()
             t0 = time.perf_counter()
             sim = run(sim)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = two_cross.launch_count()
+            launches = path_launches()
         st = sim.run_stats
         check_finite(sim)
         at_last_step = {"eulerian_data": eulerian_card_vs_cpu(sim.model, w.grid.dims),
@@ -1580,14 +1961,13 @@ def run_and_count(sim, counts, **kw):
     """``run(sim)``; adds its steps and its kernel launches (from the step
     and from the host passes, each counted from 0 just before) to
     ``counts``."""
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.simulation import run
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        two_cross.reset_launch_count()
+        reset_launches()
         sim = run(sim, **kw)
-        n = two_cross.launch_count()
+        n = path_launches()
     passes = sum(sim.run_stats["host_pass_launches"].values())
     counts["steps"] += sim.run_stats["steps"]
     counts["step_launches"] += n - passes
@@ -1792,16 +2172,15 @@ def _ids(floes):
 def _timed_decomp(sim, dec):
     """run_decomp on every rank with this rank's kernel count from 0;
     returns (sim, seconds, launches)."""
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.parallel import run_decomp
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         torch.cuda.synchronize()
-        two_cross.reset_launch_count()
+        reset_launches()
         t0 = time.perf_counter()
         sim = run_decomp(sim, dec)
-        launches = two_cross.launch_count()
+        launches = path_launches()
         torch.cuda.synchronize()
     return sim, time.perf_counter() - t0, launches
 
@@ -2370,6 +2749,40 @@ def segment_sum_card_vs_cpu(dev, N=32000) -> dict:
     return out
 
 
+def slow_path_device_ms(sim, n=5) -> dict:
+    """The slow path (``collisions._slow_path``: the general clip on all
+    ``slow_cap`` rows and the parity retry on its 16) on the state's
+    narrow-phase batch: its device time a call by torch.profiler over n
+    calls, and its share of the device's time in one step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from subzero_tpu_torch.physics import collisions as C
+    from subzero_tpu_torch.simulation import build_step
+
+    m = sim.model
+    nb = C.narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
+    tc = C.two_cross_dispatch(*nb.two_cross_args())
+
+    def busy_ms(fn, k):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize()
+        return sum(dev_us(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / k
+
+    slow = C._slow_path(m.floes, nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
+    ms = busy_ms(lambda: C._slow_path(m.floes, nb, tc, sim.pair_cap, sim.clip_cap,
+                                      retry=True), n)
+    step = build_step(sim)
+    step_ms = busy_ms(lambda: step(m.floes, m.ocean, m.domain, 1), n)
+    return {"slow_cap": int(slow.valid.shape[0]), "n_slow_step_0": int(slow.n_slow),
+            "device_ms": ms, "step_device_ms": step_ms, "share_of_step": ms / step_ms}
+
+
 def phase_bench(dev, report):
     """``subzero_tpu_torch.bench``'s configurations in this process, checked:
     the JAX field's counts, a finite end state with no floe lost, one kernel
@@ -2379,21 +2792,20 @@ def phase_bench(dev, report):
     phase split (``profile`` splits the step in turns;
     ``python -m subzero_tpu_torch.bench`` times as bench.py does)."""
     from subzero_tpu_torch import bench
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.physics.collisions import narrow_phase_batch
     from subzero_tpu_torch.simulation import run_scan
 
     detail = {"device": {"name": torch.cuda.get_device_name(0),
                          "nvidia_smi": bench.nvidia_smi()}}
-    setup, kernel, bitwise = {}, {}, None
+    setup, kernel, bitwise, slow_path = {}, {}, None, {}
     for name, cfg in bench.CONFIGS.items():
         t0 = time.perf_counter()
         sim = bench.build_sim(cfg["n"], cfg["L"], bench.DX, bins=cfg["bins"], device=dev)
         setup[name] = time.perf_counter() - t0
         torch.cuda.synchronize()
-        two_cross.reset_launch_count()
+        reset_launches()
         r = bench.measure(sim, cfg["n_steps"], reps=BENCH_REPS)
-        launches = two_cross.launch_count()
+        launches = path_launches()
         want = (1 + BENCH_REPS) * cfg["n_steps"]
         if (r["n_floes"], r["pairs_per_step"]) != JAX_BENCH_COUNTS[name]:
             raise AssertionError(f"{name}: floes and pairs {r['n_floes']}, "
@@ -2412,6 +2824,8 @@ def phase_bench(dev, report):
             same_state(a, b, name)
             bitwise = {"config": name, "n_steps": BITWISE_STEPS, "bitwise_equal": True}
             del a, b
+        if name in ("many_floes_8000", "many_floes_16000", "many_floes_32000"):
+            slow_path[name] = slow_path_device_ms(sim)
         if name in ("many_floes_16000", "many_floes_32000"):
             nb = narrow_phase_batch(sim.model.floes, sim.model.domain, sim.pair_cap,
                                     sim.bins)
@@ -2424,8 +2838,13 @@ def phase_bench(dev, report):
         torch.cuda.empty_cache()
     line = bench.result_line(detail)
     print(json.dumps(line), flush=True)
+    report["bench_detail"] = detail
     emit("bench", counts_equal_jax=True, host_setup_seconds=setup,
-         determinism=bitwise, kernel=kernel,
+         determinism=bitwise, kernel=kernel, slow_path=slow_path,
+         graph={k: {f: detail[k][f] for f in ("capture_s", "captures", "recaptures",
+                                              "peak_mem_gib", "peak_reserved_gib",
+                                              "capture_pool_gib")}
+                for k in bench.CONFIGS},
          segment_sum=segment_sum_card_vs_cpu(dev))
 
 
@@ -2441,10 +2860,9 @@ F32_DRIFT_TIMEOUT = 900  # seconds for a scenario's process, start-up included
 def f32_drift_run(scenario: str, dev) -> dict:
     """One scenario of the gate: 5 000 f32 steps of conservation_run on
     ``dev``, the kernel's launches counted from 0 just before."""
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.tools.scenarios import conservation_run
 
-    two_cross.reset_launch_count()
+    reset_launches()
     t0 = time.perf_counter()
     drift, sim = conservation_run(torch.float32, scenario, F32_DRIFT_STEPS, device=dev)
     torch.cuda.synchronize()
@@ -2452,7 +2870,7 @@ def f32_drift_run(scenario: str, dev) -> dict:
     check_finite(sim)
     return {"drift_percent": drift, "seconds": seconds,
             "ms_per_step": 1e3 * seconds / F32_DRIFT_STEPS,
-            "kernel_launches": two_cross.launch_count()}
+            "kernel_launches": path_launches()}
 
 
 def phase_f32_drift(dev, report):
@@ -2499,7 +2917,6 @@ def phase_e2e_shear_flow(dev, report):
     run with its floe writer every 50 steps (the file half kept in memory
     where there is no h5py), 16 candidate rows a floe; fails on any step
     over capacity, as the tool exits 1."""
-    from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.tools import e2e_shear_flow as e2e
 
     files = h5py_available()
@@ -2507,9 +2924,9 @@ def phase_e2e_shear_flow(dev, report):
         sim = e2e.build(tmp, device=dev)
         sim.verbose = False
         kept = None if files else keep_in_memory(sim.writers)
-        two_cross.reset_launch_count()
+        reset_launches()
         r = e2e.run_counted(sim)
-        launches = two_cross.launch_count()
+        launches = path_launches()
     sim = r.pop("sim")
     check_finite(sim)
     passes = sum(sim.run_stats["host_pass_launches"].values())
@@ -2537,14 +2954,13 @@ OVERFLOW_PROBE_STEPS = 2000   # the JAX tool's default
 def probe_counted(fn):
     """``fn()`` with the kernel's launches counted from 0 (overflow notes
     muted); returns (its result, launches)."""
-    from subzero_tpu_torch.geometry import two_cross
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        two_cross.reset_launch_count()
+        reset_launches()
         out = fn()
         torch.cuda.synchronize()
-    return out, two_cross.launch_count()
+    return out, path_launches()
 
 
 def phase_overflow_source(dev, report):
@@ -2680,7 +3096,7 @@ def phase_lifecycle_overhead(dev, report):
 def step_ms(sim, n_steps) -> float:
     from subzero_tpu_torch.simulation import run_scan
 
-    run_scan(fork(sim), 5)  # warm-up
+    replay_from(sim, 5)  # warm-up: captures the graphs that sim keeps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_scan(sim, n_steps)
@@ -2733,13 +3149,16 @@ def phase_profile(dev):
 
 
 def main(argv=None) -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stack
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
                     + ",".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="a checkout of an earlier commit whose kernel took "
-                    "materialised ring batches: time it on the same batches")
+                    help="a checkout of an earlier commit: with the bench "
+                    "phase, its bench and this tree's in turns; otherwise "
+                    "(a commit whose kernel took materialised ring batches) "
+                    "its kernel timed on the same batches")
     ap.add_argument("--parent-worker", metavar="FILE", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--decomp-rank", metavar="FILE", default=None,
@@ -2790,7 +3209,7 @@ def main(argv=None) -> int:
                       "library": str(native.LIB_PATH),
                       "seconds": time.perf_counter() - t0})
 
-    report = {"launches_by_path": {}}
+    report = {"launches_by_path": {}, "runs_on_the_card": {}}
     # every phase in the order of PHASES + EXTRA_PHASES; the rank processes
     # of decomp share the card, so the cache is emptied before them
     run_phase = {
@@ -2798,7 +3217,7 @@ def main(argv=None) -> int:
         "card_cpu": lambda d, r: phase_card_cpu(d),
         "determinism": lambda d, r: phase_determinism(d),
         "many_floes_2000": phase_many_floes, "binned": phase_binned,
-        "overlaps": phase_overlaps, "lifecycle": phase_lifecycle,
+        "overlaps": phase_overlaps, "lifecycle": phase_lifecycle, "graph": phase_graph,
         "lifecycle_card_cpu": phase_lifecycle_card_cpu, "writers": phase_writers,
         "restart": phase_restart, "bench": phase_bench, "f32_drift": phase_f32_drift,
         "decomp": lambda d, r: (torch.cuda.empty_cache(), phase_decomp(d, r)),
@@ -2814,10 +3233,16 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             run_phase[name](dev, report)
             seconds[name] = time.perf_counter() - t0
+    if opts.parent and "bench" in phases:
+        t0 = time.perf_counter()
+        emit("bench_vs_parent", checkout=opts.parent, **bench_in_turns(opts.parent, dev))
+        seconds["bench_vs_parent"] = time.perf_counter() - t0
     emit("seconds", by_phase=seconds)
-    if opts.parent and report.get("parent_batches"):
+    if opts.parent and "bench" not in phases and report.get("parent_batches"):
         emit("parent_kernel", checkout=opts.parent,
              **time_parent_kernel(opts.parent, report["parent_batches"]))
+
+    from subzero_tpu_torch import step_graph
 
     # the kernel's numbers at the main path's batch (shear_flow_500 after 20
     # steps): ms is its own device time, call_ms the whole Python call;
@@ -2829,8 +3254,15 @@ def main(argv=None) -> int:
         "source": "subzero_tpu_torch/csrc/two_cross.cu",
         "replaces": "subzero_tpu/geometry/pallas_clip.py:52",
         "launches": report.get("launches"),
-        # every path that launched it in this run, each counted from 0
+        # every path that launched it in this run, each counted from 0 (a
+        # step graph's replay counts the launches it captured)
         "launches_by_path": report["launches_by_path"],
+        # launched by the step graphs' warm-ups, before each capture
+        "graph_warmup_launches": step_graph.warmup_launch_count(),
+        # the kernel's runs on the card (torch.profiler) in one replay of
+        # each captured program, equal to what the replay adds to the count
+        # (graph phase)
+        "runs_on_the_card_by_replay": report["runs_on_the_card"],
         "max_abs_err": report.get("max_abs_err"),
         "ms": t.get("device_ms"),
         "plain_ms": t.get("plain_ms"),

@@ -15,8 +15,11 @@ The same five configurations as ``bench.py``, built bitwise as it builds them
 
 Each configuration runs the full device step (collide, couple at its
 cadence, integrate, remove) through ``simulation.run_scan``: one warm-up run
-of ``n_steps``, then four timed runs from the same initial state, each ending
-in a device synchronisation; the fastest counts.  ``pairs_per_s`` is the
+of ``n_steps``, which captures the step as CUDA graphs
+(``step_graph.StepGraph``), then four timed runs from the same initial
+state that replay them, each ending in a device synchronisation; the
+fastest counts (as bench.py's timed runs reuse the scan its warm-up
+compiled).  The capture's seconds are reported apart (``capture_s``).  ``pairs_per_s`` is the
 broad phase's valid candidate pairs at step 0 times steps per second, as
 ``bench.py`` counts it.  shear_flow_500 also runs with coupling off and with
 collisions off, for bench.py's split of the step.
@@ -105,13 +108,18 @@ def _finite(sim) -> bool:
                for x in tree if x.is_floating_point())
 
 
-def measure(sim, n_steps=50, reps=REPS):
+def measure(sim, n_steps=50, reps=REPS, _eager=False):
     """bench.py's ``measure`` on the port: candidate pairs at step 0, one
-    warm-up run of ``n_steps``, then ``reps`` timed runs from the same
-    initial state, each ending in a device synchronisation; the fastest
-    counts.  Adds the overflow steps of a timed run, whether its end state
-    is finite, its active floes, and on the card the peak device memory over
-    the timed runs."""
+    warm-up run of ``n_steps`` (on the card it captures the step's graphs),
+    then ``reps`` timed runs from the same initial state (replaying them),
+    each ending in a device synchronisation; the fastest counts.  Adds the
+    overflow steps of a timed run, whether its end state is finite, its
+    active floes, the capture's seconds and count, and on the card the peak
+    device memory over the timed runs: allocated by tensors, and reserved
+    (which holds the graphs' private pool), and how much each program's
+    capture added to the reserved memory.  The runs step a copy of ``sim``,
+    which keeps the graphs its warm-up captured.  ``_eager``: every run
+    steps without a graph (the reference the graph is timed against)."""
     from .physics.collisions import find_candidate_pairs
     from .simulation import run_scan
 
@@ -121,16 +129,22 @@ def measure(sim, n_steps=50, reps=REPS):
     pairs = find_candidate_pairs(fl, sim.model.domain, sim.pair_cap, sim.bins)
     pairs_per_step = int(pairs.valid.sum())
 
-    run_scan(dataclasses.replace(sim), n_steps)
+    end = dataclasses.replace(sim)
+    run_scan(end, n_steps, _eager=_eager)
     sync()
+    captured = end.run_stats["graph"]
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     elapsed = math.inf
     for _ in range(reps):
+        end.model = sim.model
         t0 = time.perf_counter()
-        end, _ = run_scan(dataclasses.replace(sim), n_steps)
+        run_scan(end, n_steps, _eager=_eager)
         sync()
         elapsed = min(elapsed, time.perf_counter() - t0)
+        if not _eager and end.run_stats["graph"]["captures"]:
+            raise AssertionError("a timed run captured the step again")
+    pool = {} if _eager else end.step_graph().capture_pool_bytes
     steps_per_s = n_steps / elapsed
     return {
         "pairs_per_s": pairs_per_step * steps_per_s,
@@ -146,6 +160,13 @@ def measure(sim, n_steps=50, reps=REPS):
         "n_floes_end": int(end.model.floes.count()),
         "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if on_card else None),
+        "peak_reserved_gib": (torch.cuda.max_memory_reserved() / 2**30
+                              if on_card else None),
+        "graph": not _eager,
+        "capture_s": None if _eager else captured["capture_seconds"],
+        "captures": None if _eager else captured["captures"],
+        "recaptures": None if _eager else captured["recaptures"],
+        "capture_pool_gib": {str(p): b / 2**30 for p, b in pool.items()},
     }
 
 

@@ -126,14 +126,15 @@ class Domain:
         N/S walls move by v, E/W walls by u)."""
         if not any(k == BoundaryKind.MOVING for k in self.kinds):
             return self
-        delta = self.velocities[[0, 1, 2, 3], [1, 1, 0, 0]] * dt
-        moving = torch.tensor(
-            [k == BoundaryKind.MOVING for k in self.kinds],
-            device=self.vals.device,
-        )
-        return dataclasses.replace(
-            self, vals=self.vals + torch.where(moving, delta, 0.0)
-        )
+        # which walls move is known on the host: a wall that does not move
+        # adds zero, and nothing is uploaded (the step stays capturable)
+        vel = self.velocities
+        zero = vel.new_zeros(())
+        delta = torch.stack([
+            vel[w, comp] * dt if k == BoundaryKind.MOVING else zero
+            for w, (k, comp) in enumerate(zip(self.kinds, (1, 1, 0, 0)))
+        ])
+        return dataclasses.replace(self, vals=self.vals + delta)
 
 
 def make_domain(

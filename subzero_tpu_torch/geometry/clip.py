@@ -42,9 +42,24 @@ SLIVER_TOL_F64 = 1e-10
 # Q-offset direction of the degeneracy-breaking perturbation.
 PERTURB_X = 0.6180339887498949
 
+# A crossing is proper when both edge parameters lie in (EPS_T, 1 - EPS_T).
+EPS_T = 1e-12
+
 
 def sliver_tol(dtype) -> float:
     return SLIVER_TOL_F64 if dtype == torch.float64 else SLIVER_TOL_F32
+
+
+def perturb_offset(perturb, K: int, dtype, device):
+    """The degeneracy-breaking offset of Q, ``perturb * (PERTURB_X, 1)``, as
+    [K, 1, 2] (``perturb`` a scalar or [K]).  Built from Python scalars on
+    the device: a constant uploaded from host memory would synchronise the
+    host and could not be captured in a CUDA graph."""
+    if isinstance(perturb, torch.Tensor):
+        pert = perturb.to(dtype=dtype, device=device).expand(K)
+    else:
+        pert = torch.full((K,), perturb, dtype=dtype, device=device)
+    return torch.stack([pert * PERTURB_X, pert], dim=-1)[:, None, :]
 
 
 def first_true(mask, size: int, fill: int):
@@ -191,9 +206,7 @@ def intersect_regions(pv, pn, qv, qn, CAP: int = DEFAULT_CAP, perturb=0.0) -> Cl
     K, V, _ = pv.shape
     W = qv.shape[1]
     dtype, dev = pv.dtype, pv.device
-    pert = torch.as_tensor(perturb, dtype=dtype, device=dev).expand(K)
-    off = torch.tensor([PERTURB_X, 1.0], dtype=dtype, device=dev)
-    qv = qv + pert[:, None, None] * off
+    qv = qv + perturb_offset(perturb, K, dtype, dev)
     pn = pn.long()
     qn = qn.long()
 
@@ -210,11 +223,10 @@ def intersect_regions(pv, pn, qv, qn, CAP: int = DEFAULT_CAP, perturb=0.0) -> Cl
     denom_safe = torch.where(denom == 0, 1.0, denom)
     t = (d0[..., 0] * s[..., 1] - d0[..., 1] * s[..., 0]) / denom_safe
     u = (d0[..., 0] * r[..., 1] - d0[..., 1] * r[..., 0]) / denom_safe
-    eps = torch.tensor(1e-12, dtype=dtype, device=dev)
     proper = (
         (denom != 0)
-        & (t > eps) & (t < 1 - eps)
-        & (u > eps) & (u < 1 - eps)
+        & (t > EPS_T) & (t < 1 - EPS_T)
+        & (u > EPS_T) & (u < 1 - EPS_T)
         & pe_m[:, :, None] & qe_m[:, None, :]
     )
     px = pa[:, :, None, 0] + t * r[..., 0]
@@ -447,8 +459,7 @@ def two_cross_pass(pv, pn, qv, qn, perturb) -> TwoCrossResult:
     along Q), whose integrals reduce to masked sums.
     """
     dtype = pv.dtype
-    off = torch.tensor([PERTURB_X, 1.0], dtype=dtype, device=pv.device)
-    qv = qv + perturb[:, None, None] * off
+    qv = qv + perturb_offset(perturb, pv.shape[0], dtype, pv.device)
     pn = pn.long()
     qn = qn.long()
 
@@ -466,11 +477,10 @@ def two_cross_pass(pv, pn, qv, qn, perturb) -> TwoCrossResult:
     denom_safe = torch.where(denom == 0, 1.0, denom)
     t = (d0x * sy - d0y * sx) / denom_safe
     u = (d0x * ry - d0y * rx) / denom_safe
-    eps = torch.tensor(1e-12, dtype=dtype, device=pv.device)
     proper = (
         (denom != 0)
-        & (t > eps) & (t < 1 - eps)
-        & (u > eps) & (u < 1 - eps)
+        & (t > EPS_T) & (t < 1 - EPS_T)
+        & (u > EPS_T) & (u < 1 - EPS_T)
         & pe_m[:, None, :] & qe_m[None, :, :]
     )
     cnt = proper.sum((0, 1))
@@ -519,8 +529,7 @@ def two_cross_pass(pv, pn, qv, qn, perturb) -> TwoCrossResult:
     crQ = qax * qby - qbx * qay
     areaQ = torch.abs(0.5 * torch.where(qe_m, crQ, 0.0).sum(0))
     max_reasonable = torch.minimum(areaP, areaQ) * (1 + 1e-6)
-    sliver = torch.tensor(sliver_tol(dtype), dtype=dtype, device=pv.device)
-    ok = ok & (S > -sliver * max_reasonable) & (S <= max_reasonable)
+    ok = ok & (S > -sliver_tol(dtype) * max_reasonable) & (S <= max_reasonable)
     pos = ok & (S > 0)
     area = torch.where(pos, S, 0.0)
     denom_c = torch.where(pos, 6.0 * S, 1.0)
@@ -609,9 +618,7 @@ def count_crossings(pv, pn, qv, qn, perturb=0.0):
     dtype = pv.dtype
     K, V, _ = pv.shape
     W = qv.shape[1]
-    pert = torch.as_tensor(perturb, dtype=dtype, device=pv.device).expand(K)
-    off = torch.tensor([PERTURB_X, 1.0], dtype=dtype, device=pv.device)
-    qv = qv + pert[:, None, None] * off
+    qv = qv + perturb_offset(perturb, K, dtype, pv.device)
     pa, pb = close_ring(pv, pn)
     qa, qb = close_ring(qv, qn)
     pe_m = torch.arange(V, device=pv.device) < pn[:, None]
@@ -623,11 +630,10 @@ def count_crossings(pv, pn, qv, qn, perturb=0.0):
     denom_safe = torch.where(denom == 0, 1.0, denom)
     t = (d0[..., 0] * s[..., 1] - d0[..., 1] * s[..., 0]) / denom_safe
     u = (d0[..., 0] * r[..., 1] - d0[..., 1] * r[..., 0]) / denom_safe
-    eps = torch.tensor(1e-12, dtype=dtype, device=pv.device)
     proper = (
         (denom != 0)
-        & (t > eps) & (t < 1 - eps)
-        & (u > eps) & (u < 1 - eps)
+        & (t > EPS_T) & (t < 1 - EPS_T)
+        & (u > EPS_T) & (u < 1 - EPS_T)
         & pe_m[:, :, None] & qe_m[:, None, :]
     )
     count = proper.sum((1, 2))

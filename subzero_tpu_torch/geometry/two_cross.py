@@ -43,6 +43,7 @@ OUT_FLOATS = 10  # contain, area, centroid, chord_a, chord_b, p_norm of a row
 
 _lib = None
 _launches = 0
+_captured = 0
 
 
 def launch_count() -> int:
@@ -53,6 +54,19 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def captured_count() -> int:
+    """Number of launches recorded into CUDA graphs (not run then: a graph
+    launches them at each replay).  Never reset."""
+    return _captured
+
+
+def add_replayed(n: int) -> None:
+    """Count ``n`` launches made by the replay of a CUDA graph that
+    captured them (step_graph.py)."""
+    global _launches
+    _launches += n
 
 
 def _nvcc() -> str:
@@ -189,8 +203,9 @@ def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
                 valid) -> None:
     """One launch of the kernel on checked inputs into a buffer from
     ``alloc_output`` (what ``two_cross_cuda`` does after its checks; timing
-    loops call it to leave the host's share out)."""
-    global _launches
+    loops call it to leave the host's share out).  Under a CUDA graph's
+    capture the launch is recorded, not run, and counted as captured."""
+    global _launches, _captured
     PC, dtype, dev = qi.shape[0], p_verts.dtype, p_verts.device
     if PC == 0:
         return
@@ -207,7 +222,10 @@ def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if(lib, rc, "two_cross kernel")
-    _launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured += 1
+    else:
+        _launches += 1
 
 
 def two_cross_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,

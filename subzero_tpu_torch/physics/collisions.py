@@ -47,9 +47,7 @@ from ..geometry.clip import (
 )
 from ..settings import CollisionSettings
 
-# the slow path runs the general clip on the first tier that holds every
-# slow pair (a ladder keeps the batch near the step's actual demand)
-SLOW_TIERS = (8, 16, 64, 256)
+# rows of the slow path's parity retry
 RETRY_CAP = 16
 D_SPILL = 8
 
@@ -298,7 +296,10 @@ def _find_candidate_pairs_binned(
     # order inside a bin, inactive floes sort last), then each bin's
     # contiguous run gathered into its [M] row
     order = torch.argsort(bin_id, stable=True)
-    counts = torch.bincount(bin_id, minlength=NB + 1)[:NB]
+    # (a scatter of ones, not bincount, which reads its input's maximum on
+    # the host on the card)
+    counts = torch.zeros(NB + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, bin_id, torch.ones_like(bin_id))[:NB]
     start = torch.cumsum(counts, 0) - counts
     kk = torch.arange(M, device=dev)
     mem_valid = kk[None, :] < counts[:, None]                    # [NB, M]
@@ -723,19 +724,6 @@ class CollisionResult(NamedTuple):
     overflow: torch.Tensor        # pair-capacity or crossing-capacity overflow
 
 
-def _empty_regions(K, CAP, dtype, dev) -> ClipRegions:
-    z = torch.zeros((K, CAP), dtype=dtype, device=dev)
-    zi = torch.zeros((K, CAP), dtype=torch.int32, device=dev)
-    z2 = torch.zeros((K, CAP, 2), dtype=dtype, device=dev)
-    return ClipRegions(
-        total_area=torch.zeros((K,), dtype=dtype, device=dev),
-        area=z, centroid=z2, n_cross=zi, chord_a=z2, chord_b=z2, p_norm=z2,
-        p_len=z, p_cnt=zi, q_cnt=zi,
-        valid=torch.zeros((K, CAP), dtype=torch.bool, device=dev),
-        overflow=torch.zeros((K,), dtype=torch.bool, device=dev),
-    )
-
-
 class NarrowBatch(NamedTuple):
     """What the narrow phase runs on: the ring pools and the candidate list.
     No per-pair ring is materialised; ``ring_batch`` builds them on request."""
@@ -846,26 +834,32 @@ class _SlowPairs(NamedTuple):
     j: torch.Tensor        # [slow_cap] Q-pool slot
     shift: torch.Tensor    # [slow_cap, 2]
     regions: ClipRegions   # rows that are not valid hold anything
-    n_slow: int            # slow rows in the list (may exceed slow_cap)
+    n_slow: torch.Tensor   # [] slow rows in the list (may exceed slow_cap)
     # [slow_cap] rows whose crossing parity came out odd before the retry
-    # (None when the list had no slow row)
-    parity_bad: torch.Tensor | None
+    parity_bad: torch.Tensor
 
 
 def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
                clip_cap: int, retry: bool) -> _SlowPairs:
     """Send the candidate rows that cross but are not a clean two-crossing
     contact (``cnt > 0 & ~ok``) through ``intersect_regions``, at most
-    ``max(pair_cap // 128, 32)`` of them.  Branches on the host on their
-    number (one synchronisation).  ``retry``: rerun rows whose crossing
-    parity came out odd with the perturbation flipped and scaled."""
-    dtype = floes.verts.dtype
-    dev = floes.verts.device
+    ``slow_cap = max(pair_cap // 128, 32)`` of them.  ``retry``: rerun rows
+    whose crossing parity came out odd with the perturbation flipped and
+    scaled.
+
+    Nothing here reads the device, so the step can be captured as a CUDA
+    graph.  The JAX package sizes the clip's batch by ``lax.cond``s on the
+    number of slow rows (a ladder of tiers) and on whether any parity came
+    out odd (collisions.py:1336-1402); here the clip always runs on all
+    ``slow_cap`` rows and the retry on its ``RETRY_CAP`` rows, and the rows
+    past the slow ones, or not odd, are masked.  ``intersect_regions`` is
+    row-independent, so a slow row's result does not depend on the batch it
+    is clipped in (tests/test_torch_step_graph.py)."""
     pairs, q_verts, q_n, perturb0 = nb.pairs, nb.q_verts, nb.q_n, nb.perturb
     PC = pairs.qi.shape[0]
     slow_cap = max(pair_cap // 128, 32)
     slow_mask = (tc.cnt > 0) & ~tc.ok
-    n_slow = int(slow_mask.sum())
+    n_slow = slow_mask.sum()
     ssel = first_true(slow_mask, slow_cap, PC)
     svalid = ssel < PC
     ssafe = torch.clamp(ssel, max=PC - 1)
@@ -880,39 +874,27 @@ def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
             CAP=clip_cap, perturb=perturb0[ssafe[rows]] * pscale,
         )
 
-    sregions = _empty_regions(slow_cap, clip_cap, dtype, dev)
-    bad1 = None
-    if n_slow > 0:
-        # most calls have no multi-region/degenerate contacts; otherwise the
-        # smallest tier holding every slow pair sizes the batch (the rows
-        # past n_slow are invalid and masked downstream)
-        cap = min([t for t in SLOW_TIERS if t >= n_slow] + [slow_cap])
-        cap = min(cap, slow_cap)
-        got = clip_rows(torch.arange(cap, device=dev), 1.0)
-        sregions = ClipRegions(*(
-            torch.cat([g, z[cap:]], dim=0) for g, z in zip(got, sregions)
-        ))
+    sregions = clip_rows(slice(None), 1.0)
+    # second-chance perturbation: a contact whose crossing parity comes out
+    # odd is a degeneracy the default perturbation failed to break; rerun
+    # those rows with the perturbation flipped and scaled, keeping the retry
+    # wherever it resolves (rows beyond RETRY_CAP stay overflowed and the
+    # caller's flag fires)
+    bad1 = svalid & sregions.overflow
+    if retry:
+        retry_cap = min(RETRY_CAP, slow_cap)
+        bsel = first_true(bad1, retry_cap, slow_cap)
+        bvalid = bsel < slow_cap
+        bsafe = torch.clamp(bsel, max=slow_cap - 1)
+        regs2 = clip_rows(bsafe, -41.0)
+        idx = torch.where(bvalid & ~regs2.overflow, bsafe, slow_cap)
 
-        # second-chance perturbation: a contact whose crossing parity comes
-        # out odd is a degeneracy the default perturbation failed to break;
-        # rerun those rows with the perturbation flipped and scaled, keeping
-        # the retry wherever it resolves (rows beyond RETRY_CAP stay
-        # overflowed and the caller's flag fires)
-        bad1 = svalid & sregions.overflow
-        if retry and bool(bad1.any()):
-            retry_cap = min(RETRY_CAP, slow_cap)
-            bsel = first_true(bad1, retry_cap, slow_cap)
-            bvalid = bsel < slow_cap
-            bsafe = torch.clamp(bsel, max=slow_cap - 1)
-            regs2 = clip_rows(bsafe, -41.0)
-            idx = torch.where(bvalid & ~regs2.overflow, bsafe, slow_cap)
+        def put(a, b):
+            ext = torch.cat([a, a[:1]], dim=0)  # row slow_cap: dropped
+            ext[idx] = b
+            return ext[:slow_cap]
 
-            def put(a, b):
-                ext = torch.cat([a, a[:1]], dim=0)  # row slow_cap: dropped
-                ext[idx] = b
-                return ext[:slow_cap]
-
-            sregions = ClipRegions(*(put(a, b) for a, b in zip(sregions, regs2)))
+        sregions = ClipRegions(*(put(a, b) for a, b in zip(sregions, regs2)))
     return _SlowPairs(ssel, svalid, ssafe, i1, j1, shift1, sregions, n_slow, bad1)
 
 
@@ -930,9 +912,9 @@ def timestep_collisions(
 ) -> CollisionResult:
     """timestep_collisions! (collisions.jl:734-864), batched over the pool.
 
-    The slow path and its odd-parity retry branch on the host on the number
-    of slow pairs (one synchronisation per step); everything else stays on
-    the device with fixed shapes.  ``owned_rows``: see find_candidate_pairs
+    Every shape is fixed and nothing is read on the host (the slow path
+    masks where the JAX package branches with ``lax.cond``), so the step
+    can be captured as a CUDA graph.  ``owned_rows``: see find_candidate_pairs
     (a rank's halo-extended pool; only the owned rows' results are used).
     ``with_debug``: also return the JAX package's dict of per-capacity
     counters, each a 0-d tensor on the pool's device, which says which term
@@ -1098,16 +1080,13 @@ def timestep_collisions(
     if not with_debug:
         return result
 
-    def count(x):
-        return torch.tensor(x, dtype=torch.int64, device=dev)
-
     dbg = {
         "pairs_overflow": pairs.overflow,
         "n_candidates": pvalid0.sum(),
         "compact_overflow": torch.zeros((), dtype=torch.bool, device=dev),
-        "n_slow": count(n_slow),
-        "slow_cap": count(slow_cap),
-        "n_parity_bad": count(0) if slow.parity_bad is None else slow.parity_bad.sum(),
+        "n_slow": n_slow,
+        "slow_cap": torch.full((), slow_cap, dtype=torch.int64, device=dev),
+        "n_parity_bad": slow.parity_bad.sum(),
         "clip_overflow": clip_overflow,
     }
     return result, dbg

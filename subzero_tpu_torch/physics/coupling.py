@@ -267,15 +267,12 @@ def _floe_cell_areas(floes, grid, domain, cell_cap, cx0, cy0, offs):
         ymin = torch.clamp(ymin, grid.y0, grid.yf)
         ymax = torch.clamp(ymax, grid.y0, grid.yf)
 
-    # small-ring fast path: floes typically carry far fewer vertices than
-    # the padded 32 slots; clip on the first 16 when every live ring fits
-    verts = floes.verts
-    if verts.shape[1] > 16:
-        live = torch.where(floes.active, floes.nverts, 0)
-        if int(live.max()) <= 16:
-            verts = verts[:, :16]
+    # the full ring width always: the JAX package clips on the first 16
+    # slots when every live ring fits (a lax.cond); which width serves is
+    # known only on the device, and the padded slots add exact zeros, so
+    # both widths give the same bits (tests/test_torch_step_graph.py)
     area_in_cell = _clip_area_to_rects(
-        verts, floes.nverts, xmin, xmax, ymin, ymax, pair_ok
+        floes.verts, floes.nverts, xmin, xmax, ymin, ymax, pair_ok
     )
     w_area = torch.where(pair_ok & (area_in_cell > 0), area_in_cell, 0.0)
     return wx, wy, wxs, wys, pair_ok, w_area

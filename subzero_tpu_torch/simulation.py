@@ -28,6 +28,7 @@ from .physics import coupling as _coupling
 from .physics import lifecycle_host as _lifecycle
 from .physics import simplification as _simplification
 from .physics import update_floe as _update_floe
+from .step_graph import StepGraph
 from .settings import (
     CollisionSettings,
     CouplingSettings,
@@ -86,6 +87,10 @@ class Simulation:
     # what the last run() did (output): steps, segments, and the seconds,
     # count and kernel launches of each host pass
     run_stats: dict = dataclasses.field(default_factory=dict, init=False)
+    # the step's CUDA graphs (``step_graph``): made by the first run_scan or
+    # run and kept, so that later runs replay its captures
+    _graph: Optional[StepGraph] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         N = self.model.floes.capacity
@@ -102,6 +107,20 @@ class Simulation:
             self.bins = (
                 _auto_bins(self.model) if n_act >= AUTO_BINS_MIN_N else None
             )
+
+    def step_graph(self) -> StepGraph:
+        """The step's graphs, holding the model's state: the kept
+        StepGraph, or a new one where none was made yet or a setting the
+        step reads changed since (``StepGraph.made_for``).  A state of
+        another shape is captured again at its next replay
+        (``StepGraph.load``)."""
+        g = self._graph
+        if g is None or not g.made_for(self):
+            self._graph = StepGraph(self)
+        else:
+            m = self.model
+            g.load(m.floes, m.ocean, m.domain)
+        return self._graph
 
 
 def _auto_bins(model: Model) -> Optional[tuple]:
@@ -129,15 +148,24 @@ def _auto_bins(model: Model) -> Optional[tuple]:
     return (nbx, nby, M)
 
 
-def build_step_parts(sim: Simulation) -> tuple[Callable, Callable]:
-    """The step as two halves (the reference splits it so a host pass can
-    run between them):
+def couples(cps: CouplingSettings, tstep: int) -> bool:
+    """Whether the step at ``tstep`` runs the coupling: its cadence is a
+    branch on the host, on the Python ``tstep`` (simulation.jl:151-161)."""
+    return bool(cps.coupling_on and tstep % cps.dt == 0)
 
-      collide(floes, ocean, domain, tstep)
+
+def build_step_bodies(sim: Simulation) -> tuple[Callable, Callable]:
+    """The step's two halves as the device runs them; nothing in them reads
+    the device, so ``step_graph.StepGraph`` captures them as they are:
+
+      collide(floes, ocean, domain)
           -> (floes, domain, stress_instant, overflow)
-      finish(floes, ocean, domain, stress_instant, tstep)
+      finish(floes, ocean, domain, stress_instant, couple)
           -> (floes, ocean, domain, overflow)
-    """
+
+    ``couple``: whether this step runs the coupling (``couples``).  They
+    hold what they read of ``sim``, not ``sim`` itself, so a Simulation and
+    the graphs it keeps are freed without the cycle collector."""
     grid = sim.model.grid
     atmos = sim.model.atmos
     consts = sim.consts
@@ -145,18 +173,18 @@ def build_step_parts(sim: Simulation) -> tuple[Callable, Callable]:
     fs = sim.floe_settings
     cps = sim.coupling_settings
     cls = sim.collision_settings
+    pair_cap, clip_cap, cell_cap, bins = sim.pair_cap, sim.clip_cap, sim.cell_cap, sim.bins
     # the coupling and accumulation sums are float32 one-hot products on
     # the card; TF32 would keep only about three digits of them
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def collide(floes, ocean, domain: Domain, tstep: int):
+    def collide(floes, ocean, domain: Domain):
         stress_instant = torch.zeros_like(floes.stress_accum)
         overflow = torch.zeros((), dtype=torch.bool, device=floes.verts.device)
         # --- collisions (simulation.jl:108-117) ---------------------------
         if cls.collisions_on:
             res = _collisions.timestep_collisions(
-                floes, domain, consts, dt, cls, sim.pair_cap, sim.clip_cap,
-                sim.bins,
+                floes, domain, consts, dt, cls, pair_cap, clip_cap, bins,
             )
             floes = res.floes
             stress_instant = res.stress_instant
@@ -165,13 +193,13 @@ def build_step_parts(sim: Simulation) -> tuple[Callable, Callable]:
         domain = domain.update_boundaries(dt)
         return floes, domain, stress_instant, overflow
 
-    def finish(floes, ocean, domain: Domain, stress_instant, tstep: int):
+    def finish(floes, ocean, domain: Domain, stress_instant, couple: bool):
         overflow = torch.zeros((), dtype=torch.bool, device=floes.verts.device)
         # --- coupling (simulation.jl:151-161) -----------------------------
-        if cps.coupling_on and tstep % cps.dt == 0:
+        if couple:
             floes, ocean, cp_overflow = _coupling.timestep_coupling(
                 floes, grid, domain, ocean, atmos, consts, cps, fs, dt,
-                sim.cell_cap,
+                cell_cap,
             )
             overflow = overflow | cp_overflow
         # --- integrate (simulation.jl:165-170) ----------------------------
@@ -182,6 +210,27 @@ def build_step_parts(sim: Simulation) -> tuple[Callable, Callable]:
             floes, ocean, grid, domain, fs
         )
         return floes, ocean, domain, overflow
+
+    return collide, finish
+
+
+def build_step_parts(sim: Simulation) -> tuple[Callable, Callable]:
+    """The step as two halves (the reference splits it so a host pass can
+    run between them), eagerly:
+
+      collide(floes, ocean, domain, tstep)
+          -> (floes, domain, stress_instant, overflow)
+      finish(floes, ocean, domain, stress_instant, tstep)
+          -> (floes, ocean, domain, overflow)
+    """
+    collide_body, finish_body = build_step_bodies(sim)
+
+    def collide(floes, ocean, domain: Domain, tstep: int):
+        return collide_body(floes, ocean, domain)
+
+    def finish(floes, ocean, domain: Domain, stress_instant, tstep: int):
+        return finish_body(floes, ocean, domain, stress_instant,
+                           couples(sim.coupling_settings, tstep))
 
     return collide, finish
 
@@ -214,24 +263,48 @@ def _stack_steps(outs: list):
 
 
 def run_scan(sim: Simulation, n_steps: int, start_tstep: int = 0,
-             collect: Callable | None = None):
+             collect: Callable | None = None, _eager: bool = False):
     """Run n_steps steps from the model's state.
 
+    On the card the steps replay the step captured as a CUDA graph
+    (``Simulation.step_graph``): nothing is read on the host between the
+    first step and the last, as under the reference's one jitted
+    ``lax.scan``.  The Simulation keeps its graphs, so a later run replays
+    them without capturing again.  On the CPU the same loop calls the step
+    directly.  ``_eager``: the step without a graph, one launch at a time
+    (the reference the graph is held to on the card).
+
     ``collect(floes, ocean)`` maps each post-step state to small outputs
-    that are stacked over steps.  Returns (sim, collected) with the model
-    advanced.  Steps whose pair/crossing/window capacity overflowed are
-    counted on the device and reported as one warning at the end, like
-    the reference; the count is ``sim.n_overflow``.
-    """
-    step = build_step(sim)
+    that are stacked over steps; it runs after each step, on the card
+    eagerly on the replay's output.  Returns (sim, collected) with the
+    model advanced.  Steps whose pair/crossing/window capacity overflowed
+    are counted on the device and read once at the end, reported as one
+    warning like the reference; the count is ``sim.n_overflow``, and
+    ``sim.run_stats["graph"]`` holds the graph's counters for this run."""
     floes, ocean, domain = sim.model.floes, sim.model.ocean, sim.model.domain
-    n_over = torch.zeros((), dtype=torch.int64, device=floes.verts.device)
     outs = []
-    for tstep in range(start_tstep, start_tstep + n_steps):
-        floes, ocean, domain, overflow = step(floes, ocean, domain, tstep)
-        n_over = n_over + overflow.long()
-        if collect is not None:
-            outs.append(collect(floes, ocean))
+    if _eager:
+        step = build_step(sim)
+        n_over = torch.zeros((), dtype=torch.int64, device=floes.verts.device)
+        for tstep in range(start_tstep, start_tstep + n_steps):
+            floes, ocean, domain, overflow = step(floes, ocean, domain, tstep)
+            n_over = n_over + overflow.long()
+            if collect is not None:
+                outs.append(collect(floes, ocean))
+        stats = None
+    else:
+        graph = sim.step_graph()
+        stats0 = dict(graph.stats)
+        tsteps = range(start_tstep, start_tstep + n_steps)
+        graph.prepare({graph.step_prog(t) for t in tsteps})
+        graph.n_over.zero_()
+        for tstep in tsteps:
+            graph.step(tstep)
+            if collect is not None:
+                outs.append(graph.own(collect(graph.floes, graph.ocean)))
+        n_over = graph.n_over
+        floes, ocean, domain = graph.state()
+        stats = graph.stats_since(stats0)
     sim.n_overflow = int(n_over)
     if sim.n_overflow:
         warnings.warn(
@@ -239,6 +312,7 @@ def run_scan(sim: Simulation, n_steps: int, start_tstep: int = 0,
             "results may be inaccurate. Increase pair_cap/clip_cap."
         )
     sim.model = sim.model.replace(floes=floes, ocean=ocean, domain=domain)
+    sim.run_stats = {"steps": n_steps, "graph": stats}
     collected = _stack_steps(outs) if outs else None
     return sim, collected
 
@@ -389,7 +463,8 @@ def _host_lifecycle_passes(
     return floes
 
 
-def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
+def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None,
+        _eager: bool = False):
     """run! (simulation.jl:287-297): step the simulation n_dt times, with
     the host life cycle at its cadences.
 
@@ -406,25 +481,26 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
     pair ends its segment, and ``fuse_floes`` runs before the next step
     (collisions.jl:364-368 -> simulation.jl:205-214).  The fuse flag and the
     step's overflow flag come to the host in one read per step.
-    ``sim.run_stats`` reports steps, segments, and seconds and kernel
-    launches by host pass."""
+
+    On the card every step replays the step captured as a CUDA graph
+    (``Simulation.step_graph``, as ``run_scan`` does; the step that runs
+    ridge/raft between its halves replays each half).  The host passes,
+    the callback and the writers run eagerly between replays: the callback
+    and the writers get a copy of the state, and what a pass returns is
+    copied back into the graph's buffers.  On the CPU the same loop calls
+    the step directly; ``_eager`` does so on the card too (the reference
+    the graph is held to).  ``sim.run_stats`` reports steps, segments, and
+    seconds and kernel launches by host pass, and the graph's counters for
+    this run."""
     from .io.logger import SimulationLogger
 
     logger = SimulationLogger(sim.name)
-    collide, finish = build_step_parts(sim)
-
-    def step(floes, ocean, domain, tstep):
-        floes, domain, si, ov1 = collide(floes, ocean, domain, tstep)
-        floes, ocean, domain, ov2 = finish(floes, ocean, domain, si, tstep)
-        return floes, ocean, domain, ov1 | ov2
-
     rr = sim.ridgeraft_settings
     rr_mid_step = (
         sim.interleave_ridge_raft and rr.ridge_raft_on and rr.dt > 0
     )
-    floes = sim.model.floes
-    ocean = sim.model.ocean
-    domain = sim.model.domain
+    graph = StepGraph(sim, _eager=True) if _eager else sim.step_graph()
+    stats0 = dict(graph.stats)
     tstep = start_tstep
     n_overflow = 0
     collected = []
@@ -492,17 +568,16 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
 
     t_start = time.perf_counter()
     end_tstep = start_tstep + sim.n_dt
+    graph.prepare({graph.step_prog(t) for t in range(start_tstep, end_tstep + 1)})
     while tstep <= end_tstep:
         if not is_event(tstep):
             if seg_len == 0:
                 n_segments += 1
-            floes, ocean, domain, overflow = step(floes, ocean, domain, tstep)
+            graph.step(tstep)
             if collect is not None:
-                collected.append(collect(floes, ocean))
+                collected.append(graph.own(collect(graph.floes, graph.ocean)))
             # the step's one read by the loop: fuse flag and overflow flag
-            fuse, over = torch.stack(
-                [torch.any(floes.fuse_with >= 0), overflow]
-            ).tolist()
+            fuse, over = graph.flags.tolist()
             seg_len += 1
             seg_nov += int(over)
             tstep += 1
@@ -511,13 +586,16 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
                 if has_host_ops:
                     with _HostPass(state, "fuse"):
                         floes, state["max_floe_id"] = _lifecycle.fuse_floes(
-                            floes, state["max_floe_id"], sim.floe_settings,
-                            float(sim.dt), rng,
+                            graph.floes, state["max_floe_id"],
+                            sim.floe_settings, float(sim.dt), rng,
                         )
+                    graph.load(floes)
             continue
         close_segment()
         if sim.verbose and tstep % 50 == 0:
             print(f"{tstep} timesteps")
+        if callback is not None or sim.writers is not None:
+            floes, ocean, domain = graph.state()
         if callback is not None:
             callback(tstep, floes, ocean, domain)
         if sim.writers is not None:
@@ -531,17 +609,16 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
             # mid-step placement: collisions -> ridge/raft ->
             # coupling/integration (simulation.jl:108-135); pieces created
             # mid-step carry zero instantaneous stress this step
-            floes, domain, si, ov1 = collide(floes, ocean, domain, tstep)
-            floes = _host_ridge_raft(
-                sim, floes, domain, tstep, rng, state, logger
-            )
-            floes, ocean, domain, ov2 = finish(floes, ocean, domain, si, tstep)
-            overflow = ov1 | ov2
+            graph.replay(("collide",))
+            graph.load(_host_ridge_raft(
+                sim, graph.floes, graph.domain, tstep, rng, state, logger
+            ))
+            graph.replay(("finish", couples(sim.coupling_settings, tstep)))
         else:
-            floes, ocean, domain, overflow = step(floes, ocean, domain, tstep)
+            graph.step(tstep)
         if collect is not None:
-            collected.append(collect(floes, ocean))
-        if bool(overflow):
+            collected.append(graph.own(collect(graph.floes, graph.ocean)))
+        if bool(graph.flags[1]):
             n_overflow += 1
             logger.warn(
                 "pair/crossing capacity exceeded; contact forces may be "
@@ -549,12 +626,13 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
                 tstep,
             )
         if has_host_ops:
-            floes = _host_lifecycle_passes(
-                sim, floes, domain, tstep, rng, state, logger,
+            graph.load(_host_lifecycle_passes(
+                sim, graph.floes, graph.domain, tstep, rng, state, logger,
                 skip_ridge_raft=rr_now,
-            )
+            ))
         tstep += 1
     close_segment()
+    floes, ocean, domain = graph.state()
     n_overflow += state["n_overflow"]
     sim.n_overflow = n_overflow
     if n_overflow:
@@ -576,6 +654,7 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None):
         "host_pass_launches": state["launches"],
         "rng_state": rng.bit_generator.state,
         "max_floe_id": state["max_floe_id"],
+        "graph": graph.stats_since(stats0),
     }
     if collect is not None:
         return sim, (_stack_steps(collected) if collected else None)

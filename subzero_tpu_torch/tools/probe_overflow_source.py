@@ -94,11 +94,10 @@ def overlap_query_terms(sim, floes, domain) -> dict:
     nb = C.narrow_phase_batch(floes, domain, sim.pair_cap, sim.bins)
     tc = C.two_cross_dispatch(*nb.two_cross_args())
     slow = C._slow_path(floes, nb, tc, sim.pair_cap, sim.clip_cap, retry=False)
-    bad = 0 if slow.parity_bad is None else int(slow.parity_bad.sum())
     out = {"pairs_overflow": bool(nb.pairs.overflow),
            "n_candidates": int(nb.pairs.valid.sum()),
-           "n_slow": slow.n_slow, "slow_cap": int(slow.valid.shape[0]),
-           "n_parity_bad": bad}
+           "n_slow": int(slow.n_slow), "slow_cap": int(slow.valid.shape[0]),
+           "n_parity_bad": int(slow.parity_bad.sum())}
     if out["pairs_overflow"]:
         out["crowded_floe"] = crowded_floe(sim, floes, domain)
     return out

@@ -1,8 +1,10 @@
 """The port on the card: the narrow-phase CUDA kernel against its plain
 PyTorch version, the wrapper's checks, a short run_scan that goes through
-the kernel and agrees with the CPU run, ``pair_overlaps`` on the card against
-the CPU, a 20-step ``run`` with a fracture pass, and the JAX package's f32
-conservation gate (5 000 steps of head_on and three_floes).
+the kernel and agrees with the CPU run, the step's CUDA graph against the
+eager step (bitwise) and a capture that fails (it raises), ``pair_overlaps``
+on the card against the CPU, a 20-step ``run`` with a fracture pass, and the
+JAX package's f32 conservation gate (5 000 steps of head_on and
+three_floes).
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs on a machine that has none, without the JAX-side
@@ -16,6 +18,10 @@ card vs the CPU (summation order only, amplified by contact dynamics).
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
 import warnings
 
 import numpy as np
@@ -50,6 +56,7 @@ from subzero_tpu_torch.settings import (
 from subzero_tpu_torch.simulation import Simulation, run, run_scan
 
 from torch_port_helpers import (
+    REPO,
     Ranks,
     assert_two_cross_close,
     build_pair_list,
@@ -139,10 +146,10 @@ def test_cuda_kernel_zeroes_rows_with_an_index_outside_its_pool():
     assert_two_cross_close(type(got)(*(x[~bad] for x in got)), ref, True)
 
 
-def _small_sim(device):
+def _small_sim(device, dtype=torch.float64):
     """40 Voronoi floes on a 15 x 15 periodic grid, shear ocean, two-way
-    coupling every 10 steps, f64."""
-    kw = dict(dtype=torch.float64, device=device)
+    coupling every 10 steps, f64 unless ``dtype`` says otherwise."""
+    kw = dict(dtype=dtype, device=device)
     grid = make_grid(0.0, 1.5e5, 0.0, 1.5e5, Nx=15, Ny=15)
     half = (grid.Ny + 1) // 2 + 1
     u = np.concatenate([np.linspace(0, 0.5, half), np.linspace(0.5, 0, grid.Ny + 1 - half)])
@@ -171,7 +178,11 @@ def test_cuda_run_scan_goes_through_kernel_and_matches_cpu():
     tc_kernel.reset_launch_count()
     on_card, _ = run_scan(_small_sim(dev), n)
     torch.cuda.synchronize()
-    assert tc_kernel.launch_count() == n
+    # one launch a step, replayed by the step's graph, and one in each
+    # program's warm-up before its capture
+    graph = on_card.run_stats["graph"]
+    assert graph["captures"] == 2 and graph["replays"] == n
+    assert tc_kernel.launch_count() == n + graph["warmup_launches"] == n + 2
     on_cpu, _ = run_scan(_small_sim("cpu"), n)
     for f in ("centroid", "u", "v", "xi", "collision_force", "overarea"):
         g = getattr(on_card.model.floes, f).cpu()
@@ -179,6 +190,67 @@ def test_cuda_run_scan_goes_through_kernel_and_matches_cpu():
         scale = float(r.abs().max())
         assert float((g - r).abs().max()) <= 1e-6 * scale, f
     assert torch.equal(on_card.model.floes.active.cpu(), on_cpu.model.floes.active)
+
+
+@pytest.mark.cuda
+def test_cuda_step_graph_replays_the_eager_step_bitwise():
+    """run_scan's graph (the coupling step and the plain step, captured once
+    each) against the same steps launched one by one (``_eager``), f32 and
+    f64, 21 steps with coupling at steps 10 and 20: equal to the bit; the
+    graph's launches are counted at each replay; the caller's state is not
+    written."""
+    dev = cuda_or_skip()
+    for dtype in (torch.float32, torch.float64):
+        sim = _small_sim(dev, dtype)
+        kept = [x.clone() for x in sim.model.floes]
+        tc_kernel.reset_launch_count()
+        g, _ = run_scan(dataclasses.replace(sim), 21, start_tstep=1)
+        torch.cuda.synchronize()
+        st = g.run_stats["graph"]
+        assert st["captures"] == 2 and st["recaptures"] == 0 and st["replays"] == 21
+        assert tc_kernel.launch_count() == 21 + st["warmup_launches"]
+        e, _ = run_scan(dataclasses.replace(sim), 21, start_tstep=1, _eager=True)
+        for name in ("floes", "ocean"):
+            for f, x, y in zip(getattr(g.model, name)._fields, getattr(g.model, name),
+                               getattr(e.model, name)):
+                assert torch.equal(x, y), (dtype, name, f)
+        assert all(torch.equal(x, y) for x, y in zip(sim.model.floes, kept))
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(tmp_path):
+    """A step that reads the device on the host cannot be captured: the
+    StepGraph raises, and nothing falls back to eager steps.  (In a process
+    of its own: a failed capture leaves its stream unusable.)"""
+    cuda_or_skip()
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from subzero_tpu_torch.bench import build_sim
+        from subzero_tpu_torch.simulation import run_scan
+
+        sim = build_sim(100, 5e4, 4e3)
+        graph = sim.step_graph()
+        body = graph.collide
+
+        def reads(floes, ocean, domain):
+            int(floes.u.sum())  # a host read: not allowed while capturing
+            return body(floes, ocean, domain)
+
+        graph.collide = reads
+        try:
+            run_scan(sim, 3)
+        except RuntimeError as e:
+            assert "capturing" in str(e), e
+            assert graph.stats["replays"] == 0
+            print("raised")
+            sys.exit(0)
+        sys.exit("no error")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=str(REPO),
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0 and "raised" in out.stdout, out.stdout + out.stderr
 
 
 @pytest.mark.cuda
@@ -284,7 +356,9 @@ def test_cuda_f32_drift_within_the_jax_bounds(scenario):
 
     tc_kernel.reset_launch_count()
     drift, sim = conservation_run(torch.float32, scenario, 5000)
-    assert tc_kernel.launch_count() == 5000
+    # 5 000 replays of the step's graph, and its warm-up before the capture
+    assert sim.run_stats["graph"]["warmup_launches"] == 1
+    assert tc_kernel.launch_count() == 5000 + 1
     assert sim.model.floes.verts.is_cuda
     for k in ("ke", "px", "py"):
         assert abs(drift[k]) < 0.01, drift

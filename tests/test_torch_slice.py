@@ -248,10 +248,15 @@ def test_bench_measure_on_the_cpu():
     r = tbench.measure(sim, n_steps=3)
     assert set(r) == {"pairs_per_s", "steps_per_s", "step_ms", "pairs_per_step",
                       "n_floes", "binned", "two_way_coupling", "n_steps",
-                      "n_overflow", "finite", "n_floes_end", "peak_mem_gib"}
+                      "n_overflow", "finite", "n_floes_end", "peak_mem_gib",
+                      "peak_reserved_gib", "graph", "capture_s", "captures",
+                      "recaptures", "capture_pool_gib"}
     assert r["pairs_per_step"] == int(jnp.sum(jpairs.valid)) > 0
     assert r["n_floes"] == r["n_floes_end"] == int(ref.model.floes.count())
     assert r["finite"] and r["n_overflow"] == 0 and r["peak_mem_gib"] is None
+    # the CPU runs the graph's loop with nothing to capture
+    assert r["graph"] and r["captures"] == r["recaptures"] == 0
+    assert r["peak_reserved_gib"] is None and r["capture_pool_gib"] == {}
     assert not r["binned"] and r["two_way_coupling"] and r["n_steps"] == 3
     assert r["pairs_per_s"] == pytest.approx(r["pairs_per_step"] * 1e3 / r["step_ms"],
                                              rel=1e-3)
