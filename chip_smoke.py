@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``subzero_tpu_torch``) on one NVIDIA GPU.
 
-Builds the narrow-phase CUDA kernel from ``subzero_tpu_torch/csrc`` and the
-native host clip library from ``subzero_tpu_torch/native``, holds the kernel
-against its plain PyTorch version, and drives the port on the card: the
+Builds the narrow-phase CUDA kernel (B1) and the slow clip's (B2) from
+``subzero_tpu_torch/csrc`` and the native host clip library from
+``subzero_tpu_torch/native``, holds each kernel against its plain PyTorch
+version (and B2 against its g++ host shim), and drives the port on the card: the
 device step (collide, couple, integrate, remove) through
 ``simulation.run_scan`` on the five configurations of ``bench.py`` (through
 ``subzero_tpu_torch.bench``, 500 to 32 000 floes) and the conservation
@@ -18,7 +19,7 @@ many_floes, restart_sim), and ``parallel.run_decomp`` as rank processes
 Phases (one JSON line each; any failure raises and the exit code is not 0):
 
   device    torch / CUDA versions, the card, its power limit
-  build     nvcc build of the kernel library, seconds
+  build     nvcc builds of the two kernel libraries (at once), seconds
   kernel    kernel vs its plain version (clip.two_cross_pairs), both fed ring
             pools and a pair list: random star rings (V = 16 and 32, f32 and
             f64, 6144 rows over pools of 4096, rings shared between rows,
@@ -57,13 +58,27 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pool at step 0 and after the run, the step's batch through the
             kernel and its plain version, and pair_overlaps and
             pair_interactions on the card against a CPU copy
+  regions   the slow clip's kernel (B2: clip and parity retry, n_slow read
+            on the card) against its g++ host shim, bitwise, and its plain
+            version on the card (regions.held_against_plain: counts and
+            flags as the plain version at the same dtype decides them,
+            every floating field within LIMIT_SAME eps L^p of it, L the
+            row's largest coordinate, and areas and first moments within
+            LIMIT_F64 eps L^p of the plain version in f64), f32 and f64, on
+            the slow rows of shear_flow_500 and many_floes_8000 after 20
+            steps and of the life-cycle pool after the lifecycle phase's
+            run, with n_slow cut to 0, and on lattice polygons whose
+            parities come out odd (the retry runs and resolves rows); the
+            kernels' own device time at each batch and at n_slow = 0, an
+            empty launch's, the plain version's, the bound
   graph     the step as a CUDA graph (step_graph.StepGraph, which
             run_scan, run and the bench replay on the card) against the same
             steps launched eagerly: one eager step of each program
             under torch.cuda.set_sync_debug_mode("error"); shear_flow_500
             (200 steps) and many_floes_8000 binned (50) through run_scan and
             the life-cycle run (601 steps of run, the lifecycle phase's) all
-            bitwise equal in f32, one kernel launch a step each side; host
+            bitwise equal in f32, one B1 and two B2 launches a step each
+            side, held against the card's own count under replay; host
             synchronisations between run_scan's first and last step (none)
             and over the life-cycle run's first 100 steps by source line
             (none from the step's body), graph and eager; torch.profiler's
@@ -105,7 +120,9 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             bitwise equal with every rank's pool hashed after each host
             pass, many_floes_8000's field over 4 slabs (20 steps); then one
             rank through nccl (D = 1) against the single-device run, and
-            four ranks through nccl where there are four cards
+            four ranks through nccl where there are four cards; with
+            --parent, the example's ranks of this tree and of the parent
+            checkout in turns (this tree, parent, parent, this tree)
   bench     subzero_tpu_torch.bench's five configurations (bench.py's:
             shear_flow_500, many_floes_2000, 8000, 16000 and 32000) as the
             bench runs them, with one timed run where the bench takes the
@@ -113,8 +130,9 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pairs equal to the JAX field's, end state finite and no floe
             lost, one kernel launch a step; two 20-step runs of
             many_floes_8000 bitwise equal; the kernel against its plain
-            version, and its times, at the 16k and 32k batches; the slow
-            path's device time at its full batch (8k, 16k, 32k); the contact
+            version, and its times, at the 16k and 32k batches, and the slow
+            clip's (as the regions phase) at their slow rows; the slow
+            path's device time and kernels a step (8k, 16k, 32k); the contact
             sums (collisions._segment_sum) card against CPU, bitwise, at the
             32k pool's rows; the bench's JSON line, with each
             configuration's capture seconds and peak memory (allocated, and
@@ -124,7 +142,8 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             at once), drift within the JAX bounds
   profile   (only when named) where a shear_flow_500 step's time goes:
             step_ms with coupling or collisions off, as bench.py splits it,
-            and torch.profiler's device time by operator over 20 steps
+            and torch.profiler's device time by operator and by kernel over
+            20 eager steps
   e2e_shear_flow  (only when named) tools/e2e_shear_flow.py through the
             port's tools.e2e_shear_flow: 5 000 steps of run with the floe
             writer, 16 candidate rows a floe; fails on a step over capacity
@@ -160,7 +179,8 @@ last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--parent DIR`` names a checkout of an earlier commit of this repository.
 With the bench phase, bench's five configurations run in turns, this tree's
 (the step's graph) and that checkout's own (a process of its code), with
-step_ms and peak memory of each.  Without it, for a commit whose kernel took
+step_ms and peak memory of each; with the decomp phase, the distributed
+example's ranks of both run in turns.  Without the bench phase, for a commit whose kernel took
 materialised ring batches (two_cross_cuda(pv, pn, qv, qn, perturb)), a
 subprocess builds that kernel from DIR and times it on the same batches with
 the same functions, so both kernels are measured on one card in one run.
@@ -188,7 +208,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
-          "many_floes_2000", "binned", "overlaps", "lifecycle", "graph",
+          "many_floes_2000", "binned", "overlaps", "lifecycle", "regions", "graph",
           "lifecycle_card_cpu", "writers", "restart", "bench", "f32_drift",
           "decomp")
 EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime", "overflow_source",
@@ -469,6 +489,225 @@ def time_kernel(nb) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the slow clip (B2) on the main path's slow batches
+# ---------------------------------------------------------------------------
+
+OPS_PER_EDGE_PAIR_B2 = 25  # a crossing test of the slow clip, with its share of the rest
+_REGIONS_SHIM = []
+
+
+def regions_shim():
+    """The slow clip's host shim (g++), built once a process."""
+    from subzero_tpu_torch.geometry import regions
+
+    if not _REGIONS_SHIM:
+        _REGIONS_SHIM.append(regions.build_host_shim())
+    return _REGIONS_SHIM[0]
+
+
+def slow_selection(nb, pair_cap):
+    """The step's slow selection on a narrow-phase batch: the rows the
+    narrow-phase kernel leaves to the slow clip, the first slow_cap of them
+    (ssel, PC where unused) and their count n_slow, on the card."""
+    from subzero_tpu_torch.geometry.clip import first_true, two_cross_dispatch
+
+    tc = two_cross_dispatch(*nb.two_cross_args())
+    slow = (tc.cnt > 0) & ~tc.ok
+    return first_true(slow, max(pair_cap // 128, 32), nb.pairs.qi.shape[0]), slow.sum()
+
+
+def regions_bound(args, ssel, n_slow, cap) -> dict:
+    """The least time the card could take for one slow clip: the larger of
+    its bytes (the selection and n_slow; for each live row its indices,
+    shift, perturbation, vertex counts and two rings; the packed output of
+    every row) over the memory rate, and ~25 operations for each edge pair
+    of the live rows' rings over the f32 rate."""
+    from subzero_tpu_torch.geometry import regions
+
+    p_verts, p_n, q_verts, q_n, qi, qj = args[:6]
+    R, elt = ssel.shape[0], p_verts.element_size()
+    live = min(int(n_slow), R)
+    rows = ssel[:live]
+    pn, qn = p_n[qi[rows]].long(), q_n[qj[rows]].long()
+    nbytes = (8 * R + 8 + live * (16 + 3 * elt + 8) + int((pn + qn).sum()) * 2 * elt
+              + regions.output_bytes(R, cap, p_verts.dtype))
+    ops = OPS_PER_EDGE_PAIR_B2 * int((pn * qn).sum())
+    by_bytes = 1e3 * nbytes / H100_BYTES_PER_S
+    by_ops = 1e3 * ops / H100_F32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops, "live_rows": live}
+
+
+def regions_against(args, ssel, n_slow, cap, what) -> dict:
+    """The slow clip's kernel (clip and retry) against its host shim, to the
+    bit, and its plain version on the card (regions.held_against_plain);
+    rows past n_slow zeros."""
+    from subzero_tpu_torch.geometry import regions
+
+    got, gbad = regions.regions_cuda(*args, ssel, n_slow, cap, retry_cap())
+    first, _ = regions.regions_cuda(*args, ssel, n_slow, cap, 0)
+    host, hbad = regions.run_host_shim(regions_shim(), *(x.cpu() for x in args),
+                                       ssel.cpu(), n_slow.cpu(), cap, retry_cap())
+    torch.cuda.synchronize()
+    if not torch.equal(gbad.cpu(), hbad) or not all(
+            torch.equal(x.cpu(), y) for x, y in zip(got, host)):
+        raise AssertionError(f"{what}: the slow clip's kernel and its host shim differ")
+    live = min(int(n_slow), ssel.shape[0])
+    if any(bool(x[live:].any()) for x in got):
+        raise AssertionError(f"{what}: a row past n_slow is not zeros")
+    try:
+        held = regions.held_against_plain(got, gbad, *args, ssel, n_slow, cap,
+                                          retry_cap())
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from e
+    return {"bitwise_equal_shim": True, "plain": held,
+            "odd_rows": int(gbad.sum()),
+            "resolved_by_retry": int((gbad & ~got.overflow).sum()),
+            "rows_the_retry_changed": int(torch.stack(
+                [(a != b).reshape(a.shape[0], -1).any(1) for a, b in zip(first, got)]
+            ).any(0).sum())}
+
+
+def time_regions(args, ssel, n_slow, cap) -> dict:
+    """The slow clip's times on one slow batch: its kernels' own device time
+    (torch.profiler), at this n_slow and at n_slow = 0, queued and whole
+    call, an empty launch's, the plain version's, and the bound."""
+    from subzero_tpu_torch.geometry import regions
+
+    dtype, dev = args[0].dtype, args[0].device
+    buf = regions.alloc_output(ssel.shape[0], cap, dtype, dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def launch(n=n_slow):
+        return lambda: regions.launch_into(buf, *args, ssel, n, cap, retry_cap())
+
+    def own_ms(fn):
+        return {k: profiled_kernel_ms(fn, f"regions_{k}_kernel") for k in ("clip", "retry")}
+
+    at_n, at_0 = own_ms(launch()), own_ms(launch(zero))
+    return {
+        "device_ms": at_n["clip"] + at_n["retry"], "clip_device_ms": at_n["clip"],
+        "retry_device_ms": at_n["retry"],
+        "device_ms_n_slow_0": at_0["clip"] + at_0["retry"],
+        "queued_ms": queued_ms(launch()), "queued_ms_n_slow_0": queued_ms(launch(zero)),
+        "empty_device_ms": profiled_kernel_ms(regions.empty_launch, "empty_kernel"),
+        "empty_queued_ms": queued_ms(regions.empty_launch),
+        "call_ms": median_ms(lambda: regions.regions_cuda(
+            *args, ssel, n_slow, cap, retry_cap())),
+        "plain_ms": median_ms(lambda: regions.slow_regions_plain(
+            *args, ssel, n_slow, cap, retry_cap()), reps=10),
+        **regions_bound(args, ssel, n_slow, cap),
+        "bound_ms_n_slow_0": regions_bound(args, ssel, zero, cap)["bound_ms"],
+    }
+
+
+B2_BATCH_KEYS = ("device_ms", "device_ms_n_slow_0", "bound_ms", "bound_by",
+                 "plain_ms", "live_rows")
+
+
+def regions_on_batch(nb, pair_cap, cap, what, report) -> dict:
+    """The slow clip on a main-path narrow-phase batch's own slow rows: f32
+    as fed and cast to f64 against shim and plain, and its f32 times (kept
+    for the kernels line under ``what``)."""
+    args = nb.two_cross_args()[:8]
+    ssel, n_slow = slow_selection(nb, pair_cap)
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    out = {"slow_cap": int(ssel.shape[0]), "n_slow": int(n_slow), "cap": cap,
+           "float32": regions_against(args, ssel, n_slow, cap, what),
+           "float64": regions_against(a64, ssel, n_slow, cap, what + " (f64)"),
+           "timing": time_regions(args, ssel, n_slow, cap)}
+    report.setdefault("regions_by_batch", {})[what] = {
+        "slow_cap": out["slow_cap"], "n_slow": out["n_slow"],
+        **{k: out["timing"][k] for k in B2_BATCH_KEYS}}
+    return out
+
+
+def lattice_slow_rows(dev, seed=SEED, K=64):
+    """A slow batch whose parities come out odd: polygons with vertices on a
+    coarse lattice against translated copies of themselves and each other
+    (shared edges, vertices on edges), with a perturbation of ~1e-8 of the
+    coordinates, which f32 rounds away on some of them and the retry's
+    -41 times it does not.  Every row is slow (ssel 0..K-1)."""
+    rng = np.random.default_rng(seed)
+    V = 16
+    pv, qv = np.zeros((K, V, 2)), np.zeros((K, V, 2))
+    pn, qn = np.zeros(K, np.int32), np.zeros(K, np.int32)
+
+    def lattice_poly():
+        nv = int(rng.integers(3, 9))
+        th = np.sort(rng.choice(np.arange(16), nv, replace=False)) * 2 * np.pi / 16
+        r = rng.integers(2, 5, nv)
+        return np.round(np.stack([r * np.cos(th), r * np.sin(th)], 1))
+
+    for k in range(K):
+        P = lattice_poly()
+        Q = P + rng.integers(-2, 3, 2) if k % 2 else lattice_poly()
+        for v, n, ring in ((pv, pn, P), (qv, qn, Q)):
+            v[k, :len(ring)] = ring
+            v[k, len(ring):] = ring[-1]
+            n[k] = len(ring)
+    pert = np.abs(pv).max(axis=(1, 2)) * 10.0 ** rng.uniform(-8.5, -7.5, K)
+    idx = torch.arange(K, device=dev)
+    f = dict(dtype=torch.float32, device=dev)
+    args = (torch.tensor(pv, **f), torch.tensor(pn, device=dev), torch.tensor(qv, **f),
+            torch.tensor(qn, device=dev), idx, idx, torch.zeros((K, 2), **f),
+            torch.tensor(pert, **f))
+    return args, idx.clone(), torch.tensor(K, device=dev)
+
+
+def phase_regions(dev, report):
+    """The slow clip's kernel (B2) against its host shim (bitwise) and its
+    plain version (regions.held_against_plain), f32 and f64, on the slow
+    rows real steps give it: shear_flow_500 after 20 steps, many_floes_8000
+    (binned) after 20 steps, the life-cycle pool after the lifecycle
+    phase's run (at step 0 when that phase did not run); with n_slow cut
+    to 0; and on lattice
+    polygons whose parities come out odd, so that the retry runs and
+    resolves rows.  Times at each batch (bench adds the 16k and 32k
+    fields')."""
+    from subzero_tpu_torch.geometry import regions
+    from subzero_tpu_torch.physics.collisions import narrow_phase_batch
+    from subzero_tpu_torch.simulation import run_scan
+
+    out = {}
+    for name, (n, L, bins) in {"shear_flow_500": (500, 1e5, False),
+                               "many_floes_8000": (8000, 4e5, True)}.items():
+        sim, _ = run_scan(build_sim(n, L, 2e3, device=dev, dtype=torch.float32,
+                                    bins=bins), 20)
+        m = sim.model
+        nb = narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
+        out[name] = regions_on_batch(nb, sim.pair_cap, sim.clip_cap, name, report)
+        if name == "shear_flow_500":
+            ssel, _ = slow_selection(nb, sim.pair_cap)
+            args = nb.two_cross_args()[:8]
+            none = torch.zeros((), dtype=torch.int64, device=dev)
+            out["n_slow_0"] = regions_against(args, ssel, none, sim.clip_cap, "n_slow 0")
+            report["regions_timing"] = out[name]["timing"]
+        del sim, nb
+        torch.cuda.empty_cache()
+    lc = report.get("lifecycle_run") or build_many_floes(
+        1000, device=dev, dtype=torch.float32, n_dt=LIFECYCLE_N_DT)
+    m = lc.model
+    nb = narrow_phase_batch(m.floes, m.domain, lc.pair_cap, lc.bins)
+    out["lifecycle_pool"] = dict(regions_on_batch(nb, lc.pair_cap, lc.clip_cap,
+                                                  "lifecycle pool", report),
+                                 after_the_run="lifecycle_run" in report)
+    args, ssel, n_slow = lattice_slow_rows(dev)
+    out["retry_lattice"] = dict(regions_against(args, ssel, n_slow, 16, "lattice"),
+                                timing=time_regions(args, ssel, n_slow, 16))
+    if not out["retry_lattice"]["resolved_by_retry"]:
+        raise AssertionError(f"the retry resolved no row: {out['retry_lattice']}")
+    report["regions_max_abs_err"] = max(
+        max(v.get("float32", v)["plain"]["max_abs"]["same_dtype"].values())
+        for v in out.values())
+    emit("regions", dtype="float32 (and the same batches in float64)",
+         limit_eps_L={"same_dtype": regions.LIMIT_SAME, "float64": regions.LIMIT_F64},
+         field_power=regions.FIELD_POWER,
+         retry_rows=retry_cap(), **out)
+
+
+# ---------------------------------------------------------------------------
 # an earlier commit's kernel on the same batches (--parent)
 # ---------------------------------------------------------------------------
 
@@ -549,10 +788,10 @@ BENCH_KEYS = ("step_ms", "pairs_per_s", "n_overflow", "peak_mem_gib",
 
 def bench_in_turns(parent_dir: str, dev) -> dict:
     """bench's five configurations, timed as the bench times them (best of
-    its timed runs after a warm-up), this tree's (the step's graph) and the
-    checkout's at ``parent_dir`` (its own code: the eager step) in turns in
-    this call: this tree, the checkout twice (a process of its own code on
-    its own field), this tree again.  step_ms and peak memory of each."""
+    its timed runs after a warm-up), this tree's and the checkout's at
+    ``parent_dir`` (its own code) in turns in this call: this tree, the
+    checkout twice (a process of its own code on its own field), this tree
+    again.  step_ms and peak memory of each."""
     from subzero_tpu_torch import bench
 
     env = dict(os.environ, PYTHONPATH=os.path.abspath(parent_dir))
@@ -571,37 +810,57 @@ def bench_in_turns(parent_dir: str, dev) -> dict:
         ours.append(bench.measure(sim, cfg["n_steps"]))
         out[name] = {
             "order": "this tree, parent, parent, this tree",
-            "this_tree_graph": [{k: r.get(k) for k in BENCH_KEYS} for r in ours],
-            "parent_eager": [{k: r.get(k) for k in BENCH_KEYS} for r in parent],
+            "this_tree": [{k: r.get(k) for k in BENCH_KEYS} for r in ours],
+            "parent": [{k: r.get(k) for k in BENCH_KEYS} for r in parent],
         }
         del sim
         torch.cuda.empty_cache()
     return out
 
 
-_WARMUPS_AT_RESET = [0]
+_WARMUPS_AT_RESET = {"two_cross": 0, "regions": 0}
+
+
+def b2_per_step() -> int:
+    """The slow clip's launches in one timestep_collisions: the clip and its
+    parity retry (pair_overlaps and pair_interactions make the clip only)."""
+    from subzero_tpu_torch.geometry import regions
+
+    return regions.LAUNCHES_WITH_RETRY
+
+
+def retry_cap() -> int:
+    """The rows the step's parity retry takes (collisions.RETRY_CAP)."""
+    from subzero_tpu_torch.physics import collisions
+
+    return collisions.RETRY_CAP
 
 
 def reset_launches() -> None:
-    """Set the kernel's launch count to 0 just before a path's run."""
+    """Set the kernels' launch counts to 0 just before a path's run."""
     from subzero_tpu_torch import step_graph
-    from subzero_tpu_torch.geometry import two_cross
 
-    two_cross.reset_launch_count()
-    _WARMUPS_AT_RESET[0] = step_graph.warmup_launch_count()
+    for k, mod in step_graph.KERNELS.items():
+        mod.reset_launch_count()
+        _WARMUPS_AT_RESET[k] = step_graph.warmup_launch_count(k)
 
 
-def path_launches() -> int:
-    """The kernel's launches since ``reset_launches`` that the path's steps,
-    passes and writers made: the count, less the launches of the step
-    graphs' warm-ups (a StepGraph runs each program once eagerly, outputs
-    dropped, before it captures it; those launches are real, and the
-    kernels line reports them apart, ``graph_warmup_launches``)."""
+def path_launches(kernel: str = "two_cross") -> int:
+    """A kernel's launches since ``reset_launches`` that the path's steps,
+    passes and writers made (``kernel``: "two_cross", B1, or "regions", B2):
+    the count, less the launches of the step graphs' warm-ups (a StepGraph
+    runs each program once eagerly, outputs dropped, before it captures it;
+    those launches are real, and the kernels line reports them apart,
+    ``graph_warmup_launches``)."""
     from subzero_tpu_torch import step_graph
-    from subzero_tpu_torch.geometry import two_cross
 
-    return two_cross.launch_count() - (step_graph.warmup_launch_count()
-                                       - _WARMUPS_AT_RESET[0])
+    return step_graph.KERNELS[kernel].launch_count() - (
+        step_graph.warmup_launch_count(kernel) - _WARMUPS_AT_RESET[kernel])
+
+
+def b2_path(report, key: str, launches) -> None:
+    """Record the slow clip's launches on a path for the kernels line."""
+    report.setdefault("b2_launches_by_path", {})[key] = launches
 
 
 def check_finite(sim) -> None:
@@ -645,42 +904,49 @@ def replay_from(sim, n_steps, **kw):
     return end
 
 
-def b1_under_replay(fn, n_expected, tries=3) -> int:
-    """The narrow-phase kernel's launches over ``fn`` (graph replays),
-    counted two ways: by its wrapper (a replay adds the launches its graph
-    captured) and as the ``two_cross_kernel`` runs the card made, by
-    torch.profiler.  Both must be ``n_expected``; returns the card's count.
-    A trace now and then drops device events: such a trace is taken
-    again."""
+# the names of each kernel's device functions, as torch.profiler lists them
+KERNEL_EVENTS = {"two_cross": ("two_cross_kernel",),
+                 "regions": ("regions_clip_kernel", "regions_retry_kernel")}
+
+
+def runs_under_replay(fn, n_expected, tries=3, kernel="two_cross") -> int:
+    """A kernel's launches over ``fn`` (graph replays; the narrow phase's
+    unless ``kernel`` names another), counted two ways: by its wrapper (a
+    replay adds the launches its graph captured) and as the runs of its
+    device functions the card made, by torch.profiler.  Both must be
+    ``n_expected``; returns the card's count.  A trace now and then drops
+    device events: such a trace is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch import step_graph
 
+    mod, names = step_graph.KERNELS[kernel], KERNEL_EVENTS[kernel]
     torch.cuda.synchronize()
     for _ in range(tries):
-        l0 = two_cross.launch_count()
+        l0 = mod.launch_count()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        counted = two_cross.launch_count() - l0
+        counted = mod.launch_count() - l0
         if counted != n_expected:
-            raise AssertionError(f"the wrapper counted {counted} launches, "
+            raise AssertionError(f"the wrapper of {kernel} counted {counted} launches, "
                                  f"expected {n_expected}")
         ran = sum(e.count for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and "two_cross_kernel" in e.key)
+                  if e.device_type == DeviceType.CUDA and any(k in e.key for k in names))
         if ran == n_expected:
             return ran
-    raise AssertionError(f"the card ran two_cross_kernel {ran} times in the last of "
+    raise AssertionError(f"the card ran {names} {ran} times in the last of "
                          f"{tries} traces; the wrapper counted {n_expected}")
 
 
-def b1_per_replay(graph) -> dict:
+def runs_per_replay(graph, kernel="two_cross") -> dict:
     """Each program a StepGraph captured, replayed once: the launches its
     replay adds to the wrapper's count, held against the card's runs of the
-    kernel (b1_under_replay)."""
-    return {"/".join(map(str, prog)): b1_under_replay(lambda: graph.replay(prog), n)
-            for prog, n in sorted(graph.captured_launches().items(), key=str)}
+    kernel (runs_under_replay)."""
+    return {"/".join(map(str, prog)): runs_under_replay(lambda: graph.replay(prog), n,
+                                                      kernel=kernel)
+            for prog, n in sorted(graph.captured_launches(kernel).items(), key=str)}
 
 
 def run_timed(sim, n_steps):
@@ -700,11 +966,12 @@ def run_timed(sim, n_steps):
     sim, _ = run_scan(sim, n_steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = path_launches()
+    launches, b2 = path_launches(), path_launches("regions")
     check_finite(sim)
     n_after = int(sim.model.floes.count())
-    if launches != n_steps:
-        raise AssertionError(f"kernel launched {launches} times in {n_steps} steps")
+    if launches != n_steps or b2 != b2_per_step() * n_steps:
+        raise AssertionError(f"kernels launched {launches} (B1) and {b2} (B2) times "
+                             f"in {n_steps} steps")
     if n_after != n_active:
         raise AssertionError(f"active floes {n_active} -> {n_after}")
     return sim, {
@@ -717,6 +984,7 @@ def run_timed(sim, n_steps):
         "active_floes": n_after,
         "n_overflow": sim.n_overflow,
         "kernel_launches": launches,
+        "slow_clip_launches": b2,
         "capture_seconds": capture_s,
         "graph": sim.run_stats["graph"],
     }
@@ -800,6 +1068,8 @@ def phase_slice(dev, report):
     _, nums = run_timed(sim, 200)
     report["launches"] = nums["kernel_launches"]
     report["launches_by_path"]["run_scan step (slice)"] = nums["kernel_launches"]
+    report["b2_launches"] = nums["slow_clip_launches"]
+    b2_path(report, "run_scan step (slice)", nums["slow_clip_launches"])
     emit("slice", config="shear_flow_500", dtype="float32", **nums)
 
 
@@ -908,12 +1178,15 @@ def phase_binned(dev, report):
     counters = counters_card_vs_cpu(sim)
     report["launches_by_path"]["timestep_collisions with_debug (counters, many_floes_8000)"] = \
         counters["kernel_launches"]
+    b2_path(report, "timestep_collisions with_debug (counters, many_floes_8000)",
+            counters["slow_clip_launches"])
 
     run_scan(fork(sim), 3)  # warm-up
     _, nums = run_timed(fork(sim), 50)
     if nums["n_overflow"]:
         raise AssertionError(f"{nums['n_overflow']} overflow steps on many_floes_8000")
     report["launches_by_path"]["run_scan step (binned)"] = nums["kernel_launches"]
+    b2_path(report, "run_scan step (binned)", nums["slow_clip_launches"])
 
     # dense against binned, in turns (host time drifts within a call); each
     # run replays the graphs its Simulation captured in the warm-up
@@ -1055,12 +1328,13 @@ def counters_card_vs_cpu(sim) -> dict:
             sim.clip_cap, sim.bins)
     reset_launches()
     card, dbg = timestep_collisions(fl, dom, *args, with_debug=True)
-    launches = path_launches()
+    launches, b2 = path_launches(), path_launches("regions")
     cpu, cdbg = timestep_collisions(*cpu_copy(fl, dom), *args, with_debug=True)
     got = {k: v.item() for k, v in dbg.items()}
     want = {k: v.item() for k, v in cdbg.items()}
-    if got != want or launches != 1:
-        raise AssertionError(f"counters card {got} vs CPU {want}; {launches} launches")
+    if got != want or launches != 1 or b2 != b2_per_step():
+        raise AssertionError(f"counters card {got} vs CPU {want}; {launches} (B1) and "
+                             f"{b2} (B2) launches")
     if bool(card.overflow) != bool(cpu.overflow):
         raise AssertionError("overflow flag differs between the card and the CPU")
     for f in ("remove", "fuse_with"):
@@ -1074,7 +1348,7 @@ def counters_card_vs_cpu(sim) -> dict:
                              f"{COUNTERS_RESULT_TOL}: {diffs}")
     return {"counters": got, "result_max_rel_diff": diffs,
             "tolerance": COUNTERS_RESULT_TOL, "kernel_launches": launches,
-            "seconds": time.perf_counter() - t0}
+            "slow_clip_launches": b2, "seconds": time.perf_counter() - t0}
 
 
 def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
@@ -1094,7 +1368,7 @@ def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
 
     reset_launches()
     i, j, area, valid, ovf = pair_overlaps(fl, dom, sim.pair_cap, sim.clip_cap, bins)
-    n_po = path_launches()
+    n_po, b2_po = path_launches(), path_launches("regions")
     ci, cj, carea, cvalid, covf = pair_overlaps(fl_cpu, dom_cpu, sim.pair_cap,
                                                 sim.clip_cap, bins)
     if bool(ovf) != bool(covf) or (bool(ovf) and not full_ok):
@@ -1107,7 +1381,7 @@ def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
     reset_launches()
     rows = pair_interactions(fl, dom, sim.consts, float(sim.dt), sim.pair_cap,
                              sim.clip_cap, bins)
-    n_pi = path_launches()
+    n_pi, b2_pi = path_launches(), path_launches("regions")
     crows = pair_interactions(fl_cpu, dom_cpu, sim.consts, float(sim.dt),
                               sim.pair_cap, sim.clip_cap, bins)
     if bool(rows["overflow"]) != bool(crows["overflow"]) or (
@@ -1122,15 +1396,16 @@ def overlaps_card_vs_cpu(sim, f64: bool, bins=None, full_ok=False) -> dict:
         card_rows, cpu_rows, borderline = drop_borderline_rows(
             card_rows, cpu_rows, fl_cpu.nverts.numpy(), f64)
     pi = compare_rows(card_rows, cpu_rows, ("i", "j"), cols[2:], f64)
-    if n_po != 1 or n_pi != 1:
-        raise AssertionError(f"kernel launches: pair_overlaps {n_po}, "
-                             f"pair_interactions {n_pi}; expected 1 each")
+    if n_po != 1 or n_pi != 1 or b2_po != 1 or b2_pi != 1:
+        raise AssertionError(f"kernel launches: pair_overlaps {n_po} (B1), {b2_po} "
+                             f"(B2), pair_interactions {n_pi}, {b2_pi}; expected 1 each")
     return {
         "overlap_rows": int(valid.sum()), "interaction_rows": int(rows["valid"].sum()),
         "pair_overlaps_max_rel_diff": po, "pair_interactions_max_rel_diff": pi,
         "overflowed": {"pair_overlaps": bool(ovf), "pair_interactions": bool(rows["overflow"])},
         "pairs_with_a_borderline_region_on_one_side": borderline,
         "kernel_launches": {"pair_overlaps": n_po, "pair_interactions": n_pi},
+        "slow_clip_launches": {"pair_overlaps": b2_po, "pair_interactions": b2_pi},
     }
 
 
@@ -1149,10 +1424,15 @@ def phase_overlaps(dev, report):
     by_path = report["launches_by_path"]
     by_path["pair_overlaps (overlaps phase)"] = n_po
     by_path["pair_interactions (overlaps phase)"] = n_pi
+    for q in ("pair_overlaps", "pair_interactions"):
+        b2_path(report, f"{q} (overlaps phase)",
+                sum(v["slow_clip_launches"][q] for v in out.values()))
     # the overflow flag's counters on the step-0 pool, card against CPU
     counters = counters_card_vs_cpu(build_sim(500, 1e5, 2e3, device=dev, dtype=torch.float32))
     by_path["timestep_collisions with_debug (counters, shear_flow_500)"] = \
         counters["kernel_launches"]
+    b2_path(report, "timestep_collisions with_debug (counters, shear_flow_500)",
+            counters["slow_clip_launches"])
     emit("overlaps", config="shear_flow_500 after 100 steps",
          tolerance={"float32": F32_TOL["area"], "float64": F64_TOL["area"]},
          step_0_counters_card_vs_cpu=counters, **out)
@@ -1268,22 +1548,30 @@ def phase_lifecycle(dev, report):
             reset_launches()
             t0 = time.perf_counter()
             sim = run(sim)
-            launches = path_launches()
+            launches = (path_launches(), path_launches("regions"))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         runs.append((sim, seconds, launches, transfers))
-    (a, seconds, launches, transfers), (b, seconds_b, _, _) = runs
+    (a, seconds, (launches, b2), transfers), (b, seconds_b, _, _) = runs
     report["lifecycle_run"] = a  # the graph phase holds it against eager steps
     for f, x, y in zip(a.model.floes._fields, a.model.floes, b.model.floes):
         if not torch.equal(x, y):
             raise AssertionError(f"floes.{f} differs between two runs from one seed")
     figures = lifecycle_checks(a, mass0, id0)
     st = a.run_stats
-    by = dict(st["host_pass_launches"])
-    step_launches = launches - sum(by.values())
-    if step_launches != st["steps"] or by["ridge_raft"] != st["host_pass_count"]["ridge_raft"]:
+    by, by2 = (st["host_pass_launches"][k] for k in ("two_cross", "regions"))
+    step_launches, step_b2 = launches - sum(by.values()), b2 - sum(by2.values())
+    # B1 once a step and once a host-pass query; B2 (the slow clip) its
+    # launches a step (clip and retry) and once a query; each as measured
+    n_rr = st["host_pass_count"]["ridge_raft"]
+    if step_launches != st["steps"] or by["ridge_raft"] != n_rr:
         raise AssertionError(f"kernel launches: step {step_launches} in {st['steps']} "
                              f"steps, host passes {by} of {st['host_pass_count']}")
+    if step_b2 != b2_per_step() * st["steps"] or by2 != by:
+        raise AssertionError(f"slow clip launches: step {step_b2} in {st['steps']} "
+                             f"steps, host passes {by2} of {st['host_pass_count']}")
+    b2_path(report, "run step (lifecycle)", step_b2)
+    b2_path(report, "pair_overlaps (lifecycle ridge/raft)", by2["ridge_raft"])
     by_path = report["launches_by_path"]
     by_path["run step (lifecycle)"] = step_launches
     by_path["pair_overlaps (lifecycle ridge/raft)"] = by["ridge_raft"]
@@ -1316,6 +1604,7 @@ def phase_lifecycle(dev, report):
          host_pass_count_first_100_steps=short.run_stats["host_pass_count"],
          kernel_launches={"step": step_launches, "pair_overlaps": by["ridge_raft"],
                           "pair_interactions": by["fracture"]},
+         slow_clip_launches=b2,
          kernel_and_queries_vs_plain=batches,
          n_overflow=a.n_overflow, bitwise_equal_second_run=True,
          native_clip_served=native.available(), **figures)
@@ -1330,8 +1619,8 @@ GRAPH_PROFILE_STEPS = 20
 # among a life-cycle run's synchronisations)
 STEP_BODY_FILES = ("physics/collisions.py", "physics/coupling.py",
                    "physics/update_floe.py", "physics/simplification.py",
-                   "geometry/clip.py", "geometry/two_cross.py", "core/domain.py",
-                   "step_graph.py")
+                   "geometry/clip.py", "geometry/two_cross.py", "geometry/regions.py",
+                   "core/domain.py", "step_graph.py")
 
 
 def graph_against_eager(sim, name) -> dict:
@@ -1368,25 +1657,30 @@ def graph_against_eager(sim, name) -> dict:
             end = run_scan(fork(sim), n, _eager=True)[0].model
         torch.cuda.synchronize()
         out[f"{how}_step_ms"] = 1e3 * (time.perf_counter() - t0) / n
-        if path_launches() != n:
-            raise AssertionError(f"{name} ({how}): {path_launches()} launches in {n} steps")
+        if path_launches() != n or path_launches("regions") != b2_per_step() * n:
+            raise AssertionError(f"{name} ({how}): {path_launches()} (B1) and "
+                                 f"{path_launches('regions')} (B2) launches in {n} steps")
         ends[how] = end
     same_state(ends["graph"], ends["eager"], f"{name}: graph against eager")
     if not torch.equal(ends["graph"].domain.vals, ends["eager"].domain.vals):
         raise AssertionError(f"{name}: domain differs between graph and eager")
-    out["kernel_runs_on_the_card"] = b1_under_replay(lambda: replay_from(sim, n), n)
+    out["kernel_runs_on_the_card"] = runs_under_replay(lambda: replay_from(sim, n), n)
+    out["slow_clip_runs_on_the_card"] = runs_under_replay(
+        lambda: replay_from(sim, n), b2_per_step() * n, kernel="regions")
     if graph.stats["captures"] != out["captures"]:
         raise AssertionError(f"{name}: run_scan captured again: {graph.stats}")
     out.update(bitwise_equal=True, kernel_launches_per_step=1,
+               slow_clip_launches_per_step=b2_per_step(),
                recaptures=graph.stats["recaptures"],
-               kernel_runs_per_replay=b1_per_replay(graph))
+               kernel_runs_per_replay=runs_per_replay(graph),
+               slow_clip_runs_per_replay=runs_per_replay(graph, "regions"))
     return out
 
 
 def launch_profile(fn, n) -> dict:
     """torch.profiler over ``fn`` (n steps): the host's CUDA launch calls a
     step by name (kernel launches and graph launches), and the device's
-    kernels a step and their busy time."""
+    kernels a step, their busy time and the slow clip kernels' share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1401,9 +1695,11 @@ def launch_profile(fn, n) -> dict:
            if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch"))}
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    b2 = [e for e in kernels if any(k in e.key for k in KERNEL_EVENTS["regions"])]
     return {"host_launch_calls_per_step": api,
             "device_kernels_per_step": sum(e.count for e in kernels) / n,
             "device_busy_ms_per_step": busy_ms / n,
+            "slow_clip_device_ms_per_step": sum(dev_us(e) for e in b2) / 1e3 / n,
             "wall_ms_per_step_profiled": wall_ms / n,
             "device_busy_share": busy_ms / wall_ms}
 
@@ -1452,6 +1748,10 @@ def phase_graph(dev, report):
             out[name]["kernel_runs_on_the_card"]
         report["runs_on_the_card"][f"{name}'s programs, one replay each"] = \
             out[name]["kernel_runs_per_replay"]
+        b2_path(report, f"run_scan step, graph replay (graph, {name})",
+                out[name]["slow_clip_runs_on_the_card"])
+        report.setdefault("b2_runs_on_the_card", {})[
+            f"{name}'s programs, one replay each"] = out[name]["slow_clip_runs_per_replay"]
         if name == "shear_flow_500":
             # between run_scan's first and last step nothing is read: the one
             # read is n_overflow's, after the last step
@@ -1509,11 +1809,15 @@ def phase_graph(dev, report):
     if fresh.step_graph().captured_launches() != progs:
         raise AssertionError(f"life-cycle programs captured anew hold other launches: "
                              f"{fresh.step_graph().captured_launches()} vs {progs}")
-    per_replay = b1_per_replay(fresh.step_graph())
+    per_replay = runs_per_replay(fresh.step_graph())
+    b2_per_replay = runs_per_replay(fresh.step_graph(), "regions")
     del fresh
     report["runs_on_the_card"]["life-cycle run's programs, one replay each"] = per_replay
+    report.setdefault("b2_runs_on_the_card", {})[
+        "life-cycle run's programs, one replay each"] = b2_per_replay
     life = {"steps": st["steps"], "bitwise_equal": True, "segments": st["segments"],
             "kernel_runs_per_replay": per_replay,
+            "slow_clip_runs_per_replay": b2_per_replay,
             "host_pass_count": st["host_pass_count"], "n_overflow": g.n_overflow,
             "graph": st["graph"], "graph_seconds": st["seconds"],
             "eager_seconds": eager_s}
@@ -1532,12 +1836,7 @@ def phase_graph(dev, report):
         raise AssertionError(f"the step body read the device: {body}")
     life["eager_host_syncs_per_step_first_100_steps"], life["eager_host_sync_sources"] = \
         syncs_of(True)
-    # what a later slice needs to put the slow path's tiers back on the
-    # device: CUDA graph conditional (IF) nodes through PyTorch
-    cond = {"torch.cuda.CUDAGraph.begin_capture_to_if_node":
-            hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
-            "cuda_runtime": torch.version.cuda}
-    emit("graph", dtype="float32", **out, lifecycle=life, conditional_nodes=cond)
+    emit("graph", dtype="float32", **out, lifecycle=life)
 
 
 def fracture_margins(floes, sim):
@@ -1577,15 +1876,15 @@ def phase_lifecycle_card_cpu(dev, report):
     from subzero_tpu_torch.simulation import build_step, run
 
     def counted_run(sim, where, **kw):
-        """run(sim); on the card the kernel's launches are counted from 0
-        just before it and read just after."""
+        """run(sim); on the card the kernels' launches (B1, B2) are counted
+        from 0 just before it and read just after."""
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             reset_launches()
             sim = run(sim, **kw)
-            n = path_launches()
-        if where == "cpu" and n:
-            raise AssertionError(f"the CPU run launched the kernel {n} times")
+            n = (path_launches(), path_launches("regions"))
+        if where == "cpu" and any(n):
+            raise AssertionError(f"the CPU run launched the kernels {n} times")
         return sim, n
 
     n_before = 75   # steps 0..74: device steps only; the pass follows step 75
@@ -1603,7 +1902,8 @@ def phase_lifecycle_card_cpu(dev, report):
         if where == "cpu":
             cpu_seconds = time.perf_counter() - t0
     card, cpu = sims["card"], sims["cpu"]
-    if launches["card"] != n_before or any(card.run_stats["host_pass_launches"].values()):
+    if launches["card"] != (n_before, b2_per_step() * n_before) or any(
+            any(by.values()) for by in card.run_stats["host_pass_launches"].values()):
         raise AssertionError(f"{launches['card']} kernel launches in {n_before} steps "
                              f"without an overlap query: {card.run_stats['host_pass_launches']}")
     if card.run_stats["rng_state"] != cpu.run_stats["rng_state"]:
@@ -1643,12 +1943,14 @@ def phase_lifecycle_card_cpu(dev, report):
         sim.n_dt = 0
         sims[where], launches[where] = counted_run(sim, where, start_tstep=n_before)
     card, cpu = sims["card"], sims["cpu"]
-    n_pi = card.run_stats["host_pass_launches"]["fracture"]
-    n_step = launches["card"] - n_pi
-    if n_step != 1 or n_pi != 1:
-        raise AssertionError(f"step {n_before} with its fracture pass launched the kernel "
-                             f"{n_step} times from the step and {n_pi} times from "
-                             "pair_interactions; expected 1 and 1")
+    n_pi, n_pi2 = (card.run_stats["host_pass_launches"][k]["fracture"]
+                   for k in ("two_cross", "regions"))
+    n_step, n_step2 = launches["card"][0] - n_pi, launches["card"][1] - n_pi2
+    if (n_step, n_pi, n_step2, n_pi2) != (1, 1, b2_per_step(), 1):
+        raise AssertionError(f"step {n_before} with its fracture pass launched B1 "
+                             f"{n_step} and B2 {n_step2} times from the step and "
+                             f"{n_pi} and {n_pi2} times from pair_interactions; "
+                             f"expected 1 and {b2_per_step()}, 1 and 1")
     fc, fh = card.model.floes, cpu.model.floes
     ids_c = set(fc.id[fc.active].cpu().tolist())
     ids_h = set(fh.id[fh.active].tolist())
@@ -1668,6 +1970,8 @@ def phase_lifecycle_card_cpu(dev, report):
     by_path = report["launches_by_path"]
     by_path["run step (lifecycle_card_cpu)"] = n_before + n_step
     by_path["pair_interactions (lifecycle_card_cpu fracture)"] = n_pi
+    b2_path(report, "run step (lifecycle_card_cpu)", b2_per_step() * n_before + n_step2)
+    b2_path(report, "pair_interactions (lifecycle_card_cpu fracture)", n_pi2)
     emit("lifecycle_card_cpu",
          config="examples/many_floes.py, 1000 floes in a pool of 2000, deform_on, pstar 200",
          dtype="float64", n_steps=n_before + 1, tolerance=tol,
@@ -1803,7 +2107,7 @@ def phase_writers(dev, report):
     n_dt = 200  # the example runs 5 000
     files = h5py_available()
     stats = {"seconds": dict.fromkeys(WRITERS, 0.0), "events": dict.fromkeys(WRITERS, 0),
-             "write_data_seconds": 0.0, "launches": 0}
+             "write_data_seconds": 0.0, "launches": 0, "slow_clip_launches": 0}
     with tempfile.TemporaryDirectory() as tmp:
         sim = simple_strait.build(n_dt=n_dt, out_dir=tmp, device=dev)
         w = sim.writers
@@ -1831,11 +2135,12 @@ def phase_writers(dev, report):
 
         def timed_write_data(*a, **kw):
             torch.cuda.synchronize()  # the steps queued before are not the writers'
-            l0, t0 = path_launches(), time.perf_counter()
+            l0, l2, t0 = path_launches(), path_launches("regions"), time.perf_counter()
             write_data(*a, **kw)
             torch.cuda.synchronize()
             stats["write_data_seconds"] += time.perf_counter() - t0
             stats["launches"] += path_launches() - l0
+            stats["slow_clip_launches"] += path_launches("regions") - l2
 
         w.write_data = timed_write_data
 
@@ -1851,21 +2156,31 @@ def phase_writers(dev, report):
             sim = run(sim)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = path_launches()
+            launches, b2 = path_launches(), path_launches("regions")
         st = sim.run_stats
         check_finite(sim)
         at_last_step = {"eulerian_data": eulerian_card_vs_cpu(sim.model, w.grid.dims),
                         "interaction_rows": overlaps_card_vs_cpu(sim, False, sim.bins,
                                                                  full_ok=True)}
         writer_launches = stats["launches"]
-        step_launches = launches - writer_launches - sum(st["host_pass_launches"].values())
+        step_launches = (launches - writer_launches
+                         - sum(st["host_pass_launches"]["two_cross"].values()))
         if step_launches != st["steps"] or writer_launches != stats["events"]["floes"]:
             raise AssertionError(
                 f"kernel launches: step {step_launches} in {st['steps']} steps, writer "
                 f"{writer_launches} in {stats['events']['floes']} floe-writer events")
+        writer_b2 = stats["slow_clip_launches"]
+        step_b2 = b2 - writer_b2 - sum(st["host_pass_launches"]["regions"].values())
+        if (step_b2 != b2_per_step() * st["steps"] or writer_b2 != writer_launches
+                or st["host_pass_launches"]["regions"] != st["host_pass_launches"]["two_cross"]):
+            raise AssertionError(
+                f"slow clip launches: step {step_b2} in {st['steps']} steps, writer "
+                f"{writer_b2}, host passes {st['host_pass_launches']}")
         by_path = report["launches_by_path"]
         by_path["run step (writers)"] = step_launches
         by_path["pair_interactions (FloeOutputWriter)"] = writer_launches
+        b2_path(report, "run step (writers)", step_b2)
+        b2_path(report, "pair_interactions (FloeOutputWriter)", writer_b2)
 
         # what the writers wrote: the steps, and at the last floe-writer event
         # every dataset bitwise equal to the pool pulled straight from the card
@@ -1896,6 +2211,8 @@ def phase_writers(dev, report):
             raise AssertionError("floe writer: interaction datasets of the wrong shape")
     examples, ex_counts = run_every_example(files)
     by_path["run step (every example, 21 steps each)"] = ex_counts["step_launches"]
+    b2_path(report, "run step (every example, 21 steps each)",
+            ex_counts["slow_clip_step_launches"])
     host_s = sum(st["host_pass_seconds"].values())
     writer_s = stats["write_data_seconds"]
     emit("writers", config="examples/simple_strait.py, 500 floes in a pool of 1 000, "
@@ -1926,7 +2243,7 @@ def run_every_example(files, n_dt=20) -> dict:
     Returns the figures by example and the launch counts."""
     import importlib
 
-    counts = {"steps": 0, "step_launches": 0, "pass_launches": 0}
+    counts = dict.fromkeys(COUNTS, 0)
     figures = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in EXAMPLES:
@@ -1952,27 +2269,42 @@ def run_every_example(files, n_dt=20) -> dict:
                              "dtype": str(sim.model.floes.verts.dtype).split(".")[-1],
                              "host_setup_seconds": setup_s,
                              "run_seconds": time.perf_counter() - t0, "wrote": wrote}
-    if counts["step_launches"] != counts["steps"]:
-        raise AssertionError(f"examples: kernel launches {counts}")
+    check_counts(counts, "examples")
     return figures, counts
 
 
+COUNTS = ("steps", "step_launches", "pass_launches", "slow_clip_step_launches",
+          "slow_clip_pass_launches")
+
+
 def run_and_count(sim, counts, **kw):
-    """``run(sim)``; adds its steps and its kernel launches (from the step
-    and from the host passes, each counted from 0 just before) to
-    ``counts``."""
+    """``run(sim)``; adds its steps and its kernels' launches (B1 and B2,
+    from the step and from the host passes, each counted from 0 just
+    before) to ``counts``."""
     from subzero_tpu_torch.simulation import run
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         reset_launches()
         sim = run(sim, **kw)
-        n = path_launches()
-    passes = sum(sim.run_stats["host_pass_launches"].values())
+        n, n2 = path_launches(), path_launches("regions")
+    passes, passes2 = (sum(sim.run_stats["host_pass_launches"][k].values())
+                       for k in ("two_cross", "regions"))
     counts["steps"] += sim.run_stats["steps"]
     counts["step_launches"] += n - passes
     counts["pass_launches"] += passes
+    counts["slow_clip_step_launches"] += n2 - passes2
+    counts["slow_clip_pass_launches"] += passes2
     return sim
+
+
+def check_counts(counts, what) -> None:
+    """B1 once a step, B2 b2_per_step() times a step, and one of each a
+    host-pass query."""
+    if (counts["step_launches"] != counts["steps"]
+            or counts["slow_clip_step_launches"] != b2_per_step() * counts["steps"]
+            or counts["slow_clip_pass_launches"] != counts["pass_launches"]):
+        raise AssertionError(f"{what}: kernel launches {counts}")
 
 
 def phase_restart(dev, report):
@@ -1981,7 +2313,7 @@ def phase_restart(dev, report):
                                               InitialStateOutputWriter, OutputWriters)
 
     files = h5py_available()
-    counts = {"steps": 0, "step_launches": 0, "pass_launches": 0}
+    counts = dict.fromkeys(COUNTS, 0)
     with tempfile.TemporaryDirectory() as tmp:
         # the life cycle: one run to step 450 against a run to step 300 that
         # checkpoints every 150 steps, restarted from its last checkpoint
@@ -2041,10 +2373,9 @@ def phase_restart(dev, report):
         example = {"parts": restart_sim.N_PART_SIM, "steps_a_part": restart_sim.N_DT_PART,
                    "restart_seconds": seconds, "active_floes": int(one.model.floes.count()),
                    "bitwise_equal": True}
-    if counts["step_launches"] != counts["steps"]:
-        raise AssertionError(f"kernel launches: step {counts['step_launches']} in "
-                             f"{counts['steps']} steps")
+    check_counts(counts, "restart")
     report["launches_by_path"]["run step (restart)"] = counts["step_launches"]
+    b2_path(report, "run step (restart)", counts["slow_clip_step_launches"])
     emit("restart", files=files,
          config="examples/many_floes.py, 1000 floes in a pool of 2000 (f32); "
          "examples/restart_sim.py, 20 floes (f64)",
@@ -2069,12 +2400,13 @@ VS_SINGLE_TOL = {"centroid": dict(rtol=0, atol=1e-4), "u": dict(rtol=1e-4, atol=
 VS_SINGLE_SI_FRAC = dict(rtol=1e-4, atol=1e-10)
 
 
-def launch_ranks(cmd, world, tag, out_dir, timeout, one_card_a_rank=False):
+def launch_ranks(cmd, world, tag, out_dir, timeout, one_card_a_rank=False, cwd=None):
     """Start ``world`` processes of ``cmd`` as the ranks of one process group
     (the environment torchrun sets: env://, RANK, LOCAL_RANK) and wait for
-    them; a rank that fails or does not end within ``timeout`` seconds kills
-    the others and fails the phase.  Every rank runs on card 0 unless
-    ``one_card_a_rank``.  Returns each rank's log file."""
+    them, in ``cwd`` (default this file's directory); a rank that fails or
+    does not end within ``timeout`` seconds kills the others and fails the
+    phase.  Every rank runs on card 0 unless ``one_card_a_rank``.  Returns
+    each rank's log file."""
     import socket
 
     s = socket.socket()
@@ -2091,7 +2423,7 @@ def launch_ranks(cmd, world, tag, out_dir, timeout, one_card_a_rank=False):
         logs.append(os.path.join(out_dir, f"{tag}.rank{r}.log"))
         with open(logs[-1], "w") as log:
             procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                          env=env, cwd=here))
+                                          env=env, cwd=cwd or here))
     deadline = time.monotonic() + timeout
     try:
         while True:
@@ -2111,15 +2443,21 @@ def launch_ranks(cmd, world, tag, out_dir, timeout, one_card_a_rank=False):
     return logs
 
 
-def decomp_launch(world, backend, parts, out_dir, timeout, one_card_a_rank=False):
+def decomp_launch(world, backend, parts, out_dir, timeout, one_card_a_rank=False,
+                  checkout=None):
     """The named parts of the decomp phase as ``world`` rank processes of this
-    script (``--decomp-rank``) on a process group of ``backend``; returns
-    each rank's results."""
+    script (``--decomp-rank``; with ``checkout``, of that checkout's
+    chip_smoke.py on its own package) on a process group of ``backend``;
+    returns each rank's results."""
+    os.makedirs(out_dir, exist_ok=True)
     spec = os.path.join(out_dir, f"{backend}{world}.json")
     with open(spec, "w") as f:
         json.dump({"backend": backend, "parts": parts, "out_dir": out_dir}, f)
-    launch_ranks([sys.executable, os.path.abspath(__file__), "--decomp-rank", spec],
-                 world, f"{backend}{world}", out_dir, timeout, one_card_a_rank)
+    script = (os.path.join(os.path.abspath(checkout), "chip_smoke.py") if checkout
+              else os.path.abspath(__file__))
+    launch_ranks([sys.executable, script, "--decomp-rank", spec], world,
+                 f"{backend}{world}", out_dir, timeout, one_card_a_rank,
+                 cwd=os.path.dirname(script))
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"{backend}{world}.result{r}.json")) as f:
@@ -2170,8 +2508,8 @@ def _ids(floes):
 
 
 def _timed_decomp(sim, dec):
-    """run_decomp on every rank with this rank's kernel count from 0;
-    returns (sim, seconds, launches)."""
+    """run_decomp on every rank with this rank's kernel counts from 0;
+    returns (sim, seconds, (B1 launches, B2 launches))."""
     from subzero_tpu_torch.parallel import run_decomp
 
     with warnings.catch_warnings():
@@ -2180,18 +2518,23 @@ def _timed_decomp(sim, dec):
         reset_launches()
         t0 = time.perf_counter()
         sim = run_decomp(sim, dec)
-        launches = path_launches()
+        launches = (path_launches(), path_launches("regions"))
         torch.cuda.synchronize()
     return sim, time.perf_counter() - t0, launches
 
 
 def _check_launches(sim, launches, what):
-    st = sim.run_stats
-    host = sum(st["host_pass_launches"].values())
-    if launches != st["steps"] + host:
-        raise AssertionError(f"{what}: {launches} kernel launches, {st['steps']} steps "
-                             f"and {host} from host-pass queries")
-    return {"step": launches - host, "host_pass_queries": host, "steps": st["steps"]}
+    """B1 once a step and once a host-pass query, B2 (the slow clip)
+    b2_per_step() times a step (clip and retry) and once a query, each
+    kernel's host-pass launches as the run counted them."""
+    (b1, b2), st = launches, sim.run_stats
+    by, by2 = (st["host_pass_launches"][k] for k in ("two_cross", "regions"))
+    host, host2 = sum(by.values()), sum(by2.values())
+    if b1 - host != st["steps"] or b2 - host2 != b2_per_step() * st["steps"] or by != by2:
+        raise AssertionError(f"{what}: {b1} (B1) and {b2} (B2) kernel launches in "
+                             f"{st['steps']} steps; in host passes {by} and {by2}")
+    return {"step": b1 - host, "host_pass_queries": host, "steps": st["steps"],
+            "slow_clip_step": b2 - host2, "slow_clip_host_pass_queries": host2}
 
 
 class _CaptureExtended:
@@ -2662,6 +3005,26 @@ DECOMP_PARTS = {"example": part_example, "card_cpu": part_card_cpu,
                 "scale": part_scale, "nccl1": part_nccl1}
 
 
+DECOMP_TURNS = ("this tree", "parent", "parent", "this tree")
+
+
+def decomp_example_in_turns(parent_dir, tmp) -> list:
+    """The distributed example's four gloo ranks (part ``example``) of this
+    tree and of the checkout at ``parent_dir`` (its own chip_smoke.py and
+    package) in turns: this tree, the parent twice, this tree; ms a step by
+    rank, and the single-device run of the same build, of each turn."""
+    out = []
+    for k, who in enumerate(DECOMP_TURNS):
+        ranks = decomp_launch(DECOMP_RANKS, "gloo", ["example"],
+                              os.path.join(tmp, f"turn{k + 1}"), DECOMP_TIMEOUT,
+                              checkout=parent_dir if who == "parent" else None)
+        ex = [r["example"] for r in ranks]
+        out.append({"turn": k + 1, "code": who,
+                    "ms_per_step_by_rank": [e["ms_per_step"] for e in ex],
+                    "single_device_ms_per_step": ex[0]["single_device"]["ms_per_step"]})
+    return out
+
+
 def phase_decomp(dev, report):
     import torch.distributed as dist
 
@@ -2682,12 +3045,17 @@ def phase_decomp(dev, report):
         if torch.cuda.device_count() >= DECOMP_RANKS:
             four = decomp_launch(DECOMP_RANKS, "nccl", ["example"], tmp, 300,
                                  one_card_a_rank=True)
+        turns = (decomp_example_in_turns(report["parent_dir"], tmp)
+                 if report.get("parent_dir") else None)
     ex = [r["example"] for r in ranks]
     r0 = ranks[0]
     per_rank = [e["kernel_launches"] for e in ex]
     report["launches_by_path"]["decomp step (per rank)"] = [c["step"] for c in per_rank]
     report["launches_by_path"]["decomp host-pass queries (per rank)"] = [
         c["host_pass_queries"] for c in per_rank]
+    b2_path(report, "decomp step (per rank)", [c["slow_clip_step"] for c in per_rank])
+    b2_path(report, "decomp host-pass queries (per rank)",
+            [c["slow_clip_host_pass_queries"] for c in per_rank])
     emit("decomp", config="examples/distributed_shear_flow.py: 500 floes, f32, two-way "
          "coupling, 4 x-slabs, 500 steps, 4 gloo ranks sharing the card",
          rank_processes_seconds=gloo_s, nccl_process_seconds=nccl_s,
@@ -2705,7 +3073,8 @@ def phase_decomp(dev, report):
                 "steps": r0["scale"]["steps"], "n_overflow": r0["scale"]["n_overflow"],
                 "active": r0["scale"]["active"]},
          nccl_world_size_1=nccl1["nccl1"],
-         four_cards=(None if four is None else [r["example"] for r in four]))
+         four_cards=(None if four is None else [r["example"] for r in four]),
+         example_in_turns_against_parent=turns)
     if four is None:
         print(f"decomp: the four-card NCCL run did not run: this machine has "
               f"{torch.cuda.device_count()} CUDA device(s) and it needs "
@@ -2750,10 +3119,11 @@ def segment_sum_card_vs_cpu(dev, N=32000) -> dict:
 
 
 def slow_path_device_ms(sim, n=5) -> dict:
-    """The slow path (``collisions._slow_path``: the general clip on all
-    ``slow_cap`` rows and the parity retry on its 16) on the state's
-    narrow-phase batch: its device time a call by torch.profiler over n
-    calls, and its share of the device's time in one step."""
+    """The slow path (``collisions._slow_path``: the step's slow selection,
+    then the slow clip's kernel, clip and parity retry) on the state's
+    narrow-phase batch: its device time and kernels a call by torch.profiler
+    over n calls, the slow clip kernels' own time, and the slow path's share
+    of the device's time in one step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2764,23 +3134,27 @@ def slow_path_device_ms(sim, n=5) -> dict:
     nb = C.narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
     tc = C.two_cross_dispatch(*nb.two_cross_args())
 
-    def busy_ms(fn, k):
+    def busy(fn, k):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(k):
                 fn()
             torch.cuda.synchronize()
-        return sum(dev_us(e) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / k
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        own = [e for e in evs if any(x in e.key for x in KERNEL_EVENTS["regions"])]
+        return (sum(dev_us(e) for e in evs) / 1e3 / k, sum(e.count for e in evs) / k,
+                sum(dev_us(e) for e in own) / 1e3 / k)
 
-    slow = C._slow_path(m.floes, nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
-    ms = busy_ms(lambda: C._slow_path(m.floes, nb, tc, sim.pair_cap, sim.clip_cap,
-                                      retry=True), n)
+    slow = C._slow_path(nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
+    ms, kernels, b2_ms = busy(lambda: C._slow_path(nb, tc, sim.pair_cap,
+                                                   sim.clip_cap, retry=True), n)
     step = build_step(sim)
-    step_ms = busy_ms(lambda: step(m.floes, m.ocean, m.domain, 1), n)
+    step_ms, step_kernels, _ = busy(lambda: step(m.floes, m.ocean, m.domain, 1), n)
     return {"slow_cap": int(slow.valid.shape[0]), "n_slow_step_0": int(slow.n_slow),
-            "device_ms": ms, "step_device_ms": step_ms, "share_of_step": ms / step_ms}
+            "device_ms": ms, "device_kernels": kernels, "slow_clip_kernels_ms": b2_ms,
+            "step_device_ms": step_ms, "step_device_kernels": step_kernels,
+            "share_of_step": ms / step_ms}
 
 
 def phase_bench(dev, report):
@@ -2805,7 +3179,7 @@ def phase_bench(dev, report):
         torch.cuda.synchronize()
         reset_launches()
         r = bench.measure(sim, cfg["n_steps"], reps=BENCH_REPS)
-        launches = path_launches()
+        launches, b2 = path_launches(), path_launches("regions")
         want = (1 + BENCH_REPS) * cfg["n_steps"]
         if (r["n_floes"], r["pairs_per_step"]) != JAX_BENCH_COUNTS[name]:
             raise AssertionError(f"{name}: floes and pairs {r['n_floes']}, "
@@ -2814,9 +3188,11 @@ def phase_bench(dev, report):
         if not r["finite"] or r["n_floes_end"] != r["n_floes"]:
             raise AssertionError(f"{name}: finite {r['finite']}, floes "
                                  f"{r['n_floes']} -> {r['n_floes_end']}")
-        if launches != want:
-            raise AssertionError(f"{name}: kernel launched {launches} times in {want} steps")
+        if launches != want or b2 != b2_per_step() * want:
+            raise AssertionError(f"{name}: kernels launched {launches} (B1) and {b2} "
+                                 f"(B2) times in {want} steps")
         report["launches_by_path"][f"run_scan step (bench {name})"] = launches
+        b2_path(report, f"run_scan step (bench {name})", b2)
         r["pairs_per_s"] = round(r["pairs_per_s"], 1)
         if name == "many_floes_8000":
             a, _ = run_scan(fork(sim), BITWISE_STEPS)
@@ -2831,8 +3207,13 @@ def phase_bench(dev, report):
                                     sim.bins)
             kernel[name] = {"check": check_main_path_batch(nb, name, report),
                             "timing": time_kernel(nb)}
+            # the slow clip on the slow rows 20 steps in (none at step 0)
+            m = run_scan(fork(sim), 20)[0].model
+            nb = narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
+            kernel[name]["slow_clip_20_steps_in"] = regions_on_batch(
+                nb, sim.pair_cap, sim.clip_cap, name, report)
             report.setdefault("bench_kernel", {})[name] = kernel[name]["timing"]
-            del nb
+            del nb, m
         detail[name] = r
         del sim
         torch.cuda.empty_cache()
@@ -2870,7 +3251,8 @@ def f32_drift_run(scenario: str, dev) -> dict:
     check_finite(sim)
     return {"drift_percent": drift, "seconds": seconds,
             "ms_per_step": 1e3 * seconds / F32_DRIFT_STEPS,
-            "kernel_launches": path_launches()}
+            "kernel_launches": path_launches(),
+            "slow_clip_launches": path_launches("regions")}
 
 
 def phase_f32_drift(dev, report):
@@ -2900,14 +3282,17 @@ def phase_f32_drift(dev, report):
             logs[sc].close()
     for sc, bounds in F32_DRIFT_BOUNDS.items():
         r, drift = out[sc], out[sc]["drift_percent"]
-        if r["kernel_launches"] != F32_DRIFT_STEPS:
-            raise AssertionError(f"{sc}: kernel launched {r['kernel_launches']} times in "
+        if (r["kernel_launches"], r["slow_clip_launches"]) != (
+                F32_DRIFT_STEPS, b2_per_step() * F32_DRIFT_STEPS):
+            raise AssertionError(f"{sc}: kernels launched {r['kernel_launches']} (B1) and "
+                                 f"{r['slow_clip_launches']} (B2) times in "
                                  f"{F32_DRIFT_STEPS} steps")
         over = {k: drift[k] for k, b in bounds.items() if not abs(drift[k]) < b}
         if over:
             raise AssertionError(f"{sc}: f32 drift beyond the JAX bounds "
                                  f"{bounds} (percent): {over}")
         report["launches_by_path"][f"run_scan step (f32_drift {sc})"] = r["kernel_launches"]
+        b2_path(report, f"run_scan step (f32_drift {sc})", r["slow_clip_launches"])
         r["bounds_percent"] = bounds
     emit("f32_drift", dtype="float32", n_steps=F32_DRIFT_STEPS, **out)
 
@@ -2929,7 +3314,7 @@ def phase_e2e_shear_flow(dev, report):
         launches = path_launches()
     sim = r.pop("sim")
     check_finite(sim)
-    passes = sum(sim.run_stats["host_pass_launches"].values())
+    passes = sum(sim.run_stats["host_pass_launches"]["two_cross"].values())
     report["launches_by_path"]["run step (e2e_shear_flow)"] = launches - passes
     floe_events = len(kept["floes"]) if kept else None
     emit("e2e_shear_flow", files=files, floe_writer_events=floe_events,
@@ -3124,12 +3509,14 @@ def phase_profile(dev):
              "coupling_amortized": full - no_cpl,
              "integrate_remove_other": no_col + no_cpl - full, "runs_ms": runs}
 
+    # the op table from eager steps: a graph's replay runs the same kernels
+    # but records no host op for the profiler to charge them to
     n = 20
     sim, _ = run_scan(cfg(), 10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_scan(sim, n)
+        run_scan(sim, n, _eager=True)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -3145,7 +3532,10 @@ def phase_profile(dev):
          device_busy_share=busy_ms / wall_ms,
          kernel_launches_per_step=sum(e.count for e in kernels) / n,
          top_ops=[{"op": e.key[:80], "device_ms_per_step": dev_us(e) / 1e3 / n,
-                   "calls_per_step": e.count / n} for e in ops[:15]])
+                   "calls_per_step": e.count / n} for e in ops[:15]],
+         top_kernels=[{"kernel": e.key[:80], "device_ms_per_step": dev_us(e) / 1e3 / n,
+                       "calls_per_step": e.count / n}
+                      for e in sorted(kernels, key=dev_us, reverse=True)[:15]])
 
 
 def main(argv=None) -> int:
@@ -3191,11 +3581,18 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi)
 
-    from subzero_tpu_torch.geometry import two_cross
+    from concurrent.futures import ThreadPoolExecutor
 
-    info = two_cross.build(force=True)
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    from subzero_tpu_torch.geometry import regions, two_cross
+
+    # one nvcc a kernel library, both at once
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.build, force=True) for k in (two_cross, regions)]
+        info, info_b2 = (b.result() for b in builds)
+
+    def ptxas_of(build):
+        return [ln.strip() for ln in build["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
     # the native host clip (g++; host C++, not a GPU kernel): the life-cycle
     # passes use it, and the run fails if it does not build here
     from subzero_tpu_torch import native
@@ -3204,12 +3601,14 @@ def main(argv=None) -> int:
     if os.environ.get("SUBZERO_NATIVE", "1") != "0" and not (
             native.build(force=True) and native.available()):
         raise RuntimeError("g++ build of subzero_tpu_torch/native/clip.cpp failed")
-    emit("build", seconds=info["seconds"], library=info["path"], ptxas=ptxas,
+    emit("build", seconds=info["seconds"], library=info["path"], ptxas=ptxas_of(info),
+         slow_clip={"seconds": info_b2["seconds"], "library": info_b2["path"],
+                    "ptxas": ptxas_of(info_b2)},
          native_clip={"served_by": "native" if native.available() else "python",
                       "library": str(native.LIB_PATH),
                       "seconds": time.perf_counter() - t0})
 
-    report = {"launches_by_path": {}, "runs_on_the_card": {}}
+    report = {"launches_by_path": {}, "runs_on_the_card": {}, "parent_dir": opts.parent}
     # every phase in the order of PHASES + EXTRA_PHASES; the rank processes
     # of decomp share the card, so the cache is emptied before them
     run_phase = {
@@ -3217,7 +3616,8 @@ def main(argv=None) -> int:
         "card_cpu": lambda d, r: phase_card_cpu(d),
         "determinism": lambda d, r: phase_determinism(d),
         "many_floes_2000": phase_many_floes, "binned": phase_binned,
-        "overlaps": phase_overlaps, "lifecycle": phase_lifecycle, "graph": phase_graph,
+        "overlaps": phase_overlaps, "lifecycle": phase_lifecycle,
+        "regions": phase_regions, "graph": phase_graph,
         "lifecycle_card_cpu": phase_lifecycle_card_cpu, "writers": phase_writers,
         "restart": phase_restart, "bench": phase_bench, "f32_drift": phase_f32_drift,
         "decomp": lambda d, r: (torch.cuda.empty_cache(), phase_decomp(d, r)),
@@ -3248,6 +3648,7 @@ def main(argv=None) -> int:
     # steps): ms is its own device time, call_ms the whole Python call;
     # launches is the slice phase's count
     t = report.get("timing", {})
+    t2 = report.get("regions_timing", {})
     print(json.dumps({"kernels": [{
         "name": "two_cross",
         "route": "cuda",
@@ -3274,6 +3675,30 @@ def main(argv=None) -> int:
         "empty_device_ms": t.get("empty_device_ms"),
         "empty_queued_ms": t.get("empty_queued_ms"),
         "call_ms": t.get("call_ms"),
+    }, {
+        # the slow clip at shear_flow_500's slow batch after 20 steps (the
+        # regions phase): ms is its two kernels' own device time, clip and
+        # retry; launches is the slice phase's count (two a step)
+        "name": "intersect_regions",
+        "route": "cuda",
+        "source": "subzero_tpu_torch/csrc/intersect_regions.cu",
+        "replaces": "subzero_tpu/geometry/clip.py:188 (jnp, fused by XLA; "
+                    "run by subzero_tpu/physics/collisions.py:1336-1403)",
+        "launches": report.get("b2_launches"),
+        "launches_by_path": report.get("b2_launches_by_path", {}),
+        "graph_warmup_launches": step_graph.warmup_launch_count("regions"),
+        "runs_on_the_card_by_replay": report.get("b2_runs_on_the_card", {}),
+        "max_abs_err": report.get("regions_max_abs_err"),
+        "ms": t2.get("device_ms"),
+        "plain_ms": t2.get("plain_ms"),
+        "bound_ms": t2.get("bound_ms"),
+        "bound_by": t2.get("bound_by"),
+        "library_ms": None,  # no one PyTorch call computes this function
+        **{k: t2.get(k) for k in ("device_ms_n_slow_0", "bound_ms_n_slow_0",
+                                  "clip_device_ms", "retry_device_ms", "queued_ms",
+                                  "empty_device_ms", "call_ms", "live_rows")},
+        # every slow batch of this run (regions and bench phases)
+        "by_batch": report.get("regions_by_batch", {}),
     }]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,425 @@
+"""The slow clip's CUDA kernel (B2): build, bind, launch.
+
+``csrc/intersect_regions.cu`` (per-row arithmetic in
+``csrc/intersect_regions.cuh``) is the general multi-region clip of the
+step's slow rows, the port's counterpart of the JAX package's jnp
+``subzero_tpu/geometry/clip.py:intersect_regions`` as
+``subzero_tpu/physics/collisions.py`` runs it, tier ladder and parity retry
+included (its ``lax.cond``s): the kernel reads the number of slow rows on
+the device, rows past it do no work, and the retry runs only on rows whose
+parity came out odd, found on the device.  It takes the ring pools, the
+candidate list and the slow selection, gathers each row's rings itself (a
+warp a row) and writes one packed output.  It is compiled at first use with
+``nvcc`` into ``subzero_tpu_torch/_build/libregions.so`` (rebuilt when a
+source is newer; the flags of ``two_cross.py``), loaded with ``ctypes`` and
+launched on PyTorch's current stream without synchronising.
+
+The plain PyTorch version is ``slow_regions_plain`` (the clip of every row
+through ``clip.intersect_regions`` and the retry's merge);
+``intersect_regions_dispatch`` sends CUDA tensors to the kernel and CPU
+tensors to the plain version.  ``held_against_plain`` holds a result of the
+kernel (or of its host shim) against the plain version: the one comparison
+that the tests and ``chip_smoke.py`` make.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from . import two_cross
+from .clip import ClipRegions, first_true, intersect_regions
+
+SOURCES = (two_cross.CSRC_DIR / "intersect_regions.cu",
+           two_cross.CSRC_DIR / "intersect_regions.cuh",
+           two_cross.CSRC_DIR / "two_cross.cuh")
+MAX_CAP = 32     # crossings a row keeps: one a lane
+MAX_VERTS = two_cross.MAX_VERTS
+# the retry's perturbation: the first one flipped and scaled
+# (subzero_tpu/physics/collisions.py:1386)
+RETRY_SCALE = -41.0
+# launches of one call with a retry: the clip's, then the retry's
+LAUNCHES_WITH_RETRY = 2
+
+_lib = None
+_launches = 0
+_captured = 0
+
+
+def launch_count() -> int:
+    """Number of kernel launches since the last reset (the clip and the
+    retry each count one)."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def captured_count() -> int:
+    """Number of launches recorded into CUDA graphs.  Never reset."""
+    return _captured
+
+
+def add_replayed(n: int) -> None:
+    """Count ``n`` launches made by the replay of a CUDA graph that
+    captured them (step_graph.py)."""
+    global _launches
+    _launches += n
+
+
+def build(force: bool = False) -> dict:
+    """Compile the kernel library if it is missing or older than a source."""
+    return two_cross.build_library("regions", SOURCES, force)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        info = build()
+        lib = ctypes.CDLL(info["path"])
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for name, real in (("sz_regions_f32", ctypes.c_float),
+                           ("sz_regions_f64", ctypes.c_double)):
+            fn = getattr(lib, name)
+            # pverts pnv N V qverts qnv NQ W qi qj shift perturb PC ssel R
+            # n_slow cap retry_scale retry_rows out stream
+            fn.argtypes = [p, p, i, i, p, p, i, i, p, p, p, p, ll, p, i, p, i,
+                           real, i, p, p]
+            fn.restype = ctypes.c_int
+        _lib = two_cross.bind_common(lib)
+    return _lib
+
+
+def _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
+                  n_slow, cap, retry_rows):
+    """Raise on what the kernel does not take, its limits first.  Reads only
+    the tensors' metadata: nothing synchronises."""
+    if not 1 <= cap <= MAX_CAP:
+        raise ValueError(f"the slow clip's kernel keeps at most {MAX_CAP} "
+                         f"crossings a row (CAP <= {MAX_CAP}); got CAP = {cap}")
+    for name, x in (("p_verts", p_verts), ("q_verts", q_verts)):
+        if x.dim() == 3 and x.shape[1] > MAX_VERTS:
+            raise ValueError(f"the slow clip's kernel takes rings of at most "
+                             f"{MAX_VERTS} vertices (MAX_VERTS); {name} is "
+                             f"{x.shape[1]} wide")
+    if not 0 <= retry_rows <= ssel.shape[0]:
+        raise ValueError(f"retry_rows {retry_rows} outside [0, {ssel.shape[0]}]")
+    dtype, dev = p_verts.dtype, p_verts.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    PC, R = qi.shape[0], ssel.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    two_cross.check_tensors("regions_cuda", dev, (
+        ("p_verts", p_verts, dtype, None),
+        ("p_n", p_n, i32, p_verts.shape[:1]),
+        ("q_verts", q_verts, dtype, None),
+        ("q_n", q_n, i32, q_verts.shape[:1]),
+        ("qi", qi, i64, (PC,)),
+        ("qj", qj, i64, (PC,)),
+        ("shift", shift, dtype, (PC, 2)),
+        ("perturb", perturb, dtype, (PC,)),
+        ("ssel", ssel, i64, (R,)),
+        ("n_slow", n_slow, i64, ()),
+    ))
+
+
+def output_bytes(R: int, cap: int, dtype) -> int:
+    """Bytes of the packed output of R rows (intersect_regions.cuh:out_views):
+    R (1 + 10 CAP) floats, 3 R CAP int32, R CAP + 2 R bytes."""
+    return R * (1 + 10 * cap) * dtype.itemsize + 12 * R * cap + R * cap + 2 * R
+
+
+def alloc_output(R: int, cap: int, dtype, device) -> torch.Tensor:
+    """The one buffer a launch writes."""
+    return torch.empty((output_bytes(R, cap, dtype),), dtype=torch.uint8,
+                       device=device)
+
+
+def result_of(buf, R: int, cap: int, dtype):
+    """(ClipRegions [R rows], parity_bad [R]) whose fields are views of a
+    launch's buffer, in the layout of intersect_regions.cuh:out_views."""
+    off = 0
+
+    def take(shape, dt):
+        nonlocal off
+        n = dt.itemsize
+        for d in shape:
+            n *= d
+        view = buf[off:off + n].view(dt).view(shape)
+        off += n
+        return view
+
+    f, i32, b = dtype, torch.int32, torch.bool
+    total, area = take((R,), f), take((R, cap), f)
+    cent, cha, chb, pnorm = (take((R, cap, 2), f) for _ in range(4))
+    plen = take((R, cap), f)
+    ncross, pcnt, qcnt = (take((R, cap), i32) for _ in range(3))
+    valid, overflow, parity_bad = take((R, cap), b), take((R,), b), take((R,), b)
+    return ClipRegions(
+        total_area=total, area=area, centroid=cent, n_cross=ncross,
+        chord_a=cha, chord_b=chb, p_norm=pnorm, p_len=plen, p_cnt=pcnt,
+        q_cnt=qcnt, valid=valid, overflow=overflow,
+    ), parity_bad
+
+
+def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
+                n_slow, cap, retry_rows) -> None:
+    """The clip, and the retry where ``retry_rows`` > 0, on checked inputs
+    into a buffer from ``alloc_output``: one launch each, counted (under a
+    CUDA graph's capture, counted as captured)."""
+    global _launches, _captured
+    R, dtype, dev = ssel.shape[0], p_verts.dtype, p_verts.device
+    if R == 0:
+        return
+    lib = _load()
+    fn = lib.sz_regions_f64 if dtype == torch.float64 else lib.sz_regions_f32
+    with two_cross._on_device(dev):
+        rc = fn(
+            p_verts.data_ptr(), p_n.data_ptr(), p_verts.shape[0], p_verts.shape[1],
+            q_verts.data_ptr(), q_n.data_ptr(), q_verts.shape[0], q_verts.shape[1],
+            qi.data_ptr(), qj.data_ptr(), shift.data_ptr(), perturb.data_ptr(),
+            qi.shape[0], ssel.data_ptr(), R, n_slow.data_ptr(), cap,
+            RETRY_SCALE, retry_rows, buf.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    two_cross._raise_if(lib, rc, "slow clip kernel")
+    n = LAUNCHES_WITH_RETRY if retry_rows > 0 else 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured += n
+    else:
+        _launches += n
+
+
+def regions_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
+                 n_slow, cap: int, retry_rows: int):
+    """The kernel on CUDA tensors: ring pools p_verts [N, V, 2] with p_n [N]
+    int32 and q_verts [NQ, W, 2] with q_n [NQ] int32 (V, W <= 32; f32 or
+    f64), the candidate list's qi, qj [PC] int64, shift [PC, 2] and perturb
+    [PC], the slow selection ssel [R] int64 (a row of the list, PC where
+    unused) and n_slow, the number of slow rows, a 0-d int64 tensor on the
+    card.  Row r is clipped with CAP = ``cap`` (<= 32) crossing slots if
+    r < n_slow, else it is zeros; then the first ``retry_rows`` rows whose
+    parity came out odd are clipped again with the perturbation scaled by
+    RETRY_SCALE, and the retry replaces a row's result where it resolves.
+    Returns (ClipRegions, parity_bad [R]: the rows that were odd before the
+    retry), views of one allocation."""
+    _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
+                  n_slow, cap, retry_rows)
+    dtype, R = p_verts.dtype, ssel.shape[0]
+    buf = alloc_output(R, cap, dtype, p_verts.device)
+    launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
+                n_slow, cap, retry_rows)
+    return result_of(buf, R, cap, dtype)
+
+
+def slow_regions_plain(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                       ssel, n_slow, cap: int, retry_rows: int):
+    """Plain PyTorch version of ``regions_cuda``, with its signature: every
+    row of ``ssel`` through ``clip.intersect_regions``, the rows past
+    n_slow zeroed, then the retry of the first ``retry_rows`` odd rows and
+    its merge where it resolves.  Returns (ClipRegions, parity_bad)."""
+    R, PC = ssel.shape[0], qi.shape[0]
+    dev = p_verts.device
+    live = (torch.arange(R, device=dev) < n_slow) & (ssel < PC)
+    ssafe = torch.clamp(ssel, min=0, max=PC - 1)
+    i, j, sh = qi[ssafe], qj[ssafe], shift[ssafe]
+
+    def clip_rows(rows, pscale):
+        return intersect_regions(
+            p_verts[i[rows]], p_n[i[rows]], q_verts[j[rows]] + sh[rows][:, None, :],
+            q_n[j[rows]], CAP=cap, perturb=perturb[ssafe[rows]] * pscale,
+        )
+
+    def on_live(x):
+        keep = live.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=dev))
+
+    regs = ClipRegions(*(on_live(x) for x in clip_rows(slice(None), 1.0)))
+    bad = live & regs.overflow
+    if retry_rows > 0:
+        bsel = first_true(bad, retry_rows, R)
+        bsafe = torch.clamp(bsel, max=R - 1)
+        regs2 = clip_rows(bsafe, RETRY_SCALE)
+        idx = torch.where((bsel < R) & ~regs2.overflow, bsafe, R)
+
+        def put(a, b):
+            ext = torch.cat([a, a[:1]], dim=0)  # row R: dropped
+            ext[idx] = b
+            return ext[:R]
+
+        regs = ClipRegions(*(put(a, b) for a, b in zip(regs, regs2)))
+    return regs, bad
+
+
+# The kernel held against its plain version (``held_against_plain``): each
+# floating field's power of length; the centroid as the first moment
+# area x centroid (MX / 6S, whose own error grows as 1 / S)
+FIELD_POWER = {"total_area": 2, "area": 2, "centroid": 3, "chord_a": 1,
+               "chord_b": 1, "p_norm": 1, "p_len": 1}
+# the sums held against the plain version in float64 as well: the
+# crossing points (and the chords, normals and lengths made of them) of two
+# near-parallel edges are ill-conditioned, so float32 and float64 part
+# there by far more than the rounding of the sums
+SUMS = ("total_area", "area", "centroid")
+# the limits, in eps L^p of each row, about twice the largest difference
+# read on the CPU test inputs and the card's batches: against the plain
+# version at the result's own dtype, each field (the chords are computed
+# elementwise in one order; p_len adds up to CAP segment lengths, so its
+# sums run to several L), and in float64 (SUMS)
+LIMIT_SAME = {"total_area": 4.0, "area": 4.0, "centroid": 4.0, "chord_a": 1.0,
+              "chord_b": 1.0, "p_norm": 4.0, "p_len": 32.0}
+LIMIT_F64 = 4.0
+
+
+def held_against_plain(got, gbad, p_verts, p_n, q_verts, q_n, qi, qj, shift,
+                       perturb, ssel, n_slow, cap: int, retry_rows: int) -> dict:
+    """Hold the slow clip's result ``(got, gbad)`` on these inputs (from
+    ``regions_cuda`` or the host shim) against the plain version on the
+    inputs' device, each difference in eps L^p of its row: eps the inputs'
+    dtype's, L the row's largest absolute coordinate (of P and of Q moved
+    by its shift; the shoelace terms round at eps L^2 in absolute
+    coordinates) and p the field's FIELD_POWER.
+
+    Against the plain version at the inputs' dtype, which decides alike:
+    parity flags, counts and overflow flags equal; each region's validity
+    equal except at the gate S > 0 where its area is within the area's
+    LIMIT_SAME on both sides; every floating field within its LIMIT_SAME.
+    Against the plain version in float64 on the inputs cast up (whose sums
+    do not round in float32), on the rows that float64 decides alike (the
+    same counts and flags): the areas and first moments (SUMS) within
+    LIMIT_F64.
+
+    Returns, for each reference, each field's largest difference in eps L^p
+    (``max_in_eps_L``) and as it is (``max_abs``), with the rows that
+    float64 decides otherwise and the sliver flips; raises AssertionError
+    naming the field that is off."""
+    args = (p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb)
+    same, sbad = slow_regions_plain(*args, ssel, n_slow, cap, retry_rows)
+    wide = [x.double() if x.is_floating_point() else x for x in args]
+    ref64, bad64 = slow_regions_plain(*wide, ssel, n_slow, cap, retry_rows)
+    if not torch.equal(gbad, sbad):
+        raise AssertionError("slow clip parity_bad: kernel and plain differ")
+    R, PC = ssel.shape[0], qi.shape[0]
+    row = torch.clamp(ssel, max=PC - 1)
+    pv, qv = p_verts[qi[row]], q_verts[qj[row]] + shift[row][:, None, :]
+    pv = pv * (torch.arange(pv.shape[1], device=pv.device)
+               < p_n[qi[row]][:, None])[..., None]
+    qv = qv * (torch.arange(qv.shape[1], device=qv.device)
+               < q_n[qj[row]][:, None])[..., None]
+    live = (torch.arange(R, device=ssel.device) < n_slow) & (ssel < PC)
+    L = torch.where(live, torch.maximum(pv.abs().amax((1, 2)), qv.abs().amax((1, 2))),
+                    0).double()
+    eps = torch.finfo(p_verts.dtype).eps
+
+    def unit(f, x):  # eps L^p of each entry of field f, shaped as x
+        return (eps * L ** FIELD_POWER[f]).reshape((R,) + (1,) * (x.dim() - 1))
+
+    for f in ("n_cross", "p_cnt", "q_cnt", "overflow"):
+        if not torch.equal(getattr(got, f), getattr(same, f)):
+            raise AssertionError(f"slow clip {f}: kernel and plain differ")
+    sliver = (torch.maximum(got.area, same.area).double()
+              <= LIMIT_SAME["area"] * unit("area", got.area))
+    flip = got.valid != same.valid
+    if bool((flip & ~sliver).any()):
+        raise AssertionError("slow clip valid: kernel and plain differ on a region "
+                             "larger than its row's limit")
+    alike = (bad64 == sbad) & (ref64.overflow == same.overflow)
+    for f in ("n_cross", "p_cnt", "q_cnt", "valid"):
+        alike &= (getattr(ref64, f) == getattr(same, f)).reshape(R, -1).all(1)
+
+    def moments(r):
+        return r._replace(centroid=r.area[..., None] * r.centroid)
+
+    g = moments(got)
+    out = {"max_in_eps_L": {}, "max_abs": {}}
+    for ref, limits, rows, name in (
+            (moments(same), LIMIT_SAME, torch.ones_like(live), "same_dtype"),
+            (moments(ref64), dict.fromkeys(SUMS, LIMIT_F64), alike, "float64")):
+        worst, max_abs = {}, {}
+        for f, limit in limits.items():
+            a, b = getattr(g, f).double(), getattr(ref, f).double()
+            u = unit(f, a)
+            keep = rows.reshape(u.shape)
+            d = torch.where(keep, (a - b).abs(), 0)
+            if bool((d[(u == 0).expand_as(d)] != 0).any()):
+                raise AssertionError(f"slow clip {f}: a row past n_slow is not zeros")
+            rel = torch.where(u > 0, d / torch.where(u > 0, u, 1), 0)
+            max_abs[f] = float(d.max()) if d.numel() else 0.0
+            worst[f] = float(rel.max()) if rel.numel() else 0.0
+            if worst[f] > limit:
+                raise AssertionError(
+                    f"slow clip {f}: kernel and plain ({name}) differ by "
+                    f"{worst[f]} eps L^{FIELD_POWER[f]} (limit {limit})")
+        out["max_in_eps_L"][name], out["max_abs"][name] = worst, max_abs
+    return dict(out, rows_decided_otherwise_in_f64=int((live & ~alike).sum()),
+                sliver_validity_flips=int(flip.sum()))
+
+
+def intersect_regions_dispatch(p_verts, p_n, q_verts, q_n, qi, qj, shift,
+                               perturb, ssel, n_slow, cap: int, retry_rows: int):
+    """The slow clip on the tensors' device: CUDA tensors go to the kernel,
+    which raises on what it cannot take (no fallback); CPU tensors go to
+    ``slow_regions_plain``."""
+    args = (p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel, n_slow,
+            cap, retry_rows)
+    if p_verts.is_cuda:
+        return regions_cuda(*args)
+    return slow_regions_plain(*args)
+
+
+def build_host_shim(out_dir=None):
+    """g++ build of ``csrc/intersect_regions_host.cpp``, the kernel's
+    per-row arithmetic (intersect_regions.cuh) combined serially in the
+    kernel's order, with the kernel's interface and no stream, into a
+    ctypes library (in ``out_dir``, default ``_build/``).  The CPU tests
+    and ``chip_smoke.py`` hold the kernel to it; raises without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ is not installed")
+    out_dir = Path(out_dir or two_cross.BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libregions_host.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(so), str(two_cross.CSRC_DIR / "intersect_regions_host.cpp")],
+        check=True, capture_output=True, timeout=120,
+    )
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, real in (("sz_regions_host_f32", ctypes.c_float),
+                       ("sz_regions_host_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i, i, p, p, i, i, p, p, p, p, ll, p, i, p, i, real, i, p]
+        fn.restype = None
+    return lib
+
+
+def run_host_shim(lib, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
+                  ssel, n_slow, cap: int, retry_rows: int):
+    """The host shim of ``build_host_shim`` on CPU tensors, with
+    ``regions_cuda``'s arguments -> (ClipRegions, parity_bad), views of one
+    packed buffer as the CUDA wrapper's are."""
+    R, dtype = ssel.shape[0], p_verts.dtype
+    buf = alloc_output(R, cap, dtype, "cpu")
+    fn = lib.sz_regions_host_f64 if dtype == torch.float64 else lib.sz_regions_host_f32
+    a = [x.contiguous() for x in (p_verts, p_n.to(torch.int32), q_verts,
+                                  q_n.to(torch.int32), qi, qj, shift, perturb,
+                                  ssel, n_slow.reshape(()).long())]
+    fn(a[0].data_ptr(), a[1].data_ptr(), a[0].shape[0], a[0].shape[1],
+       a[2].data_ptr(), a[3].data_ptr(), a[2].shape[0], a[2].shape[1],
+       a[4].data_ptr(), a[5].data_ptr(), a[6].data_ptr(), a[7].data_ptr(),
+       qi.shape[0], a[8].data_ptr(), R, a[9].data_ptr(), cap, RETRY_SCALE,
+       retry_rows, buf.data_ptr())
+    return result_of(buf, R, cap, dtype)
+
+
+def empty_launch() -> None:
+    """Launch an empty kernel on the current stream through the same
+    ctypes route: the floor under any launch's time.  Not counted."""
+    two_cross.empty_launch(_load())

@@ -77,19 +77,22 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def build(force: bool = False) -> dict:
-    """Compile the kernel library if it is missing or older than a source.
-    Returns {"path", "built", "seconds", "log"}; raises on a failed build."""
+def build_library(name: str, sources, force: bool = False) -> dict:
+    """Compile ``sources[0]`` (the other sources are headers it includes)
+    into ``_build/lib{name}.so`` if the library is missing or older than a
+    source.  Returns {"path", "built", "seconds", "log"}; raises on a failed
+    build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stale = force or not LIB_PATH.exists() or any(
-        s.stat().st_mtime > LIB_PATH.stat().st_mtime for s in SOURCES
+    lib_path = BUILD_DIR / f"lib{name}.so"
+    stale = force or not lib_path.exists() or any(
+        s.stat().st_mtime > lib_path.stat().st_mtime for s in sources
     )
-    log_path = BUILD_DIR / "two_cross.build.log"
+    log_path = BUILD_DIR / f"{name}.build.log"
     if not stale:
         log = log_path.read_text() if log_path.exists() else ""
-        return {"path": str(LIB_PATH), "built": False, "seconds": 0.0, "log": log}
-    tmp = BUILD_DIR / f"libtwo_cross.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[0])]
+        return {"path": str(lib_path), "built": False, "seconds": 0.0, "log": log}
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources[0])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -97,8 +100,13 @@ def build(force: bool = False) -> dict:
     log_path.write_text(log)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, LIB_PATH)
-    return {"path": str(LIB_PATH), "built": True, "seconds": seconds, "log": log}
+    os.replace(tmp, lib_path)
+    return {"path": str(lib_path), "built": True, "seconds": seconds, "log": log}
+
+
+def build(force: bool = False) -> dict:
+    """Compile the kernel library if it is missing or older than a source."""
+    return build_library("two_cross", SOURCES, force)
 
 
 def _load():
@@ -115,12 +123,18 @@ def _load():
             fn.argtypes = [p, p, i, i, p, p, i, i, p, p, p, p, p, i, real,
                            p, p, p, p]
             fn.restype = ctypes.c_int
-        lib.sz_empty_launch.argtypes = [p]
-        lib.sz_empty_launch.restype = ctypes.c_int
-        lib.sz_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.sz_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind_common(lib)
     return _lib
+
+
+def bind_common(lib):
+    """Bind what every kernel library of the port exports besides its
+    kernels: ``sz_empty_launch`` and ``sz_cuda_error_string``."""
+    lib.sz_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.sz_empty_launch.restype = ctypes.c_int
+    lib.sz_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.sz_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _on_device(dev):
@@ -145,7 +159,7 @@ def _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid):
         raise TypeError(f"unsupported dtype {dtype}")
     PC = qi.shape[0]
     i32, i64 = torch.int32, torch.int64
-    for name, x, dt, shape in (
+    check_tensors("two_cross_cuda", dev, (
         ("p_verts", p_verts, dtype, None),
         ("p_n", p_n, i32, p_verts.shape[:1]),
         ("q_verts", q_verts, dtype, None),
@@ -155,9 +169,17 @@ def _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid):
         ("shift", shift, dtype, (PC, 2)),
         ("perturb", perturb, dtype, (PC,)),
         ("valid", valid, torch.bool, (PC,)),
-    ):
+    ))
+    return PC
+
+
+def check_tensors(what: str, dev, specs) -> None:
+    """Raise unless every (name, tensor, dtype, shape) of ``specs`` is a
+    contiguous CUDA tensor on ``dev`` of that dtype and shape; shape None
+    is a ring pool [n, V, 2] with V <= MAX_VERTS, 16-byte aligned."""
+    for name, x, dt, shape in specs:
         if not x.is_cuda:
-            raise ValueError(f"two_cross_cuda takes CUDA tensors; {name} is on {x.device}")
+            raise ValueError(f"{what} takes CUDA tensors; {name} is on {x.device}")
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if shape is None:  # a ring pool; the lanes load whole vertices
@@ -173,7 +195,6 @@ def _check_inputs(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, valid):
             raise ValueError(f"{name} is on {x.device}, p_verts on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return PC
 
 
 def _itemsize(dtype) -> int:
@@ -244,9 +265,10 @@ def two_cross_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
     return result_of(buf, PC, dtype)
 
 
-def empty_launch() -> None:
+def empty_launch(lib=None) -> None:
     """Launch an empty kernel on the current stream through the same
-    ctypes route: the floor under any launch's time.  Not counted."""
-    lib = _load()
+    ctypes route (of ``lib``, default this kernel's library): the floor
+    under any launch's time.  Not counted."""
+    lib = lib or _load()
     _raise_if(lib, lib.sz_empty_launch(torch.cuda.current_stream().cuda_stream),
               "empty kernel")

@@ -42,9 +42,9 @@ from ..geometry.clip import (
     DEFAULT_CAP,
     first_true,
     gather_rings,
-    intersect_regions,
     two_cross_dispatch,
 )
+from ..geometry.regions import intersect_regions_dispatch
 from ..settings import CollisionSettings
 
 # rows of the slow path's parity retry
@@ -833,29 +833,31 @@ class _SlowPairs(NamedTuple):
     i: torch.Tensor        # [slow_cap] P-side floe
     j: torch.Tensor        # [slow_cap] Q-pool slot
     shift: torch.Tensor    # [slow_cap, 2]
-    regions: ClipRegions   # rows that are not valid hold anything
+    regions: ClipRegions   # rows that are not valid are zeros
     n_slow: torch.Tensor   # [] slow rows in the list (may exceed slow_cap)
     # [slow_cap] rows whose crossing parity came out odd before the retry
     parity_bad: torch.Tensor
 
 
-def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
-               clip_cap: int, retry: bool) -> _SlowPairs:
+def _slow_path(nb: "NarrowBatch", tc, pair_cap: int, clip_cap: int,
+               retry: bool) -> _SlowPairs:
     """Send the candidate rows that cross but are not a clean two-crossing
-    contact (``cnt > 0 & ~ok``) through ``intersect_regions``, at most
-    ``slow_cap = max(pair_cap // 128, 32)`` of them.  ``retry``: rerun rows
-    whose crossing parity came out odd with the perturbation flipped and
-    scaled.
+    contact (``cnt > 0 & ~ok``) through the general region clip, at most
+    ``slow_cap = max(pair_cap // 128, 32)`` of them.  ``retry``: rerun the
+    first ``RETRY_CAP`` rows whose crossing parity came out odd with the
+    perturbation flipped and scaled, keeping the retry where it resolves
+    (rows beyond RETRY_CAP stay overflowed and the caller's flag fires).
 
     Nothing here reads the device, so the step can be captured as a CUDA
     graph.  The JAX package sizes the clip's batch by ``lax.cond``s on the
     number of slow rows (a ladder of tiers) and on whether any parity came
-    out odd (collisions.py:1336-1402); here the clip always runs on all
-    ``slow_cap`` rows and the retry on its ``RETRY_CAP`` rows, and the rows
-    past the slow ones, or not odd, are masked.  ``intersect_regions`` is
-    row-independent, so a slow row's result does not depend on the batch it
-    is clipped in (tests/test_torch_step_graph.py)."""
-    pairs, q_verts, q_n, perturb0 = nb.pairs, nb.q_verts, nb.q_n, nb.perturb
+    out odd (collisions.py:1336-1402).  On the card the slow clip's kernel
+    (``regions.intersect_regions_dispatch``) decides the same on the device:
+    it reads ``n_slow`` there, clips only the rows before it and finds the
+    odd rows to retry itself.  On the CPU the plain version clips all
+    ``slow_cap`` rows and masks.  Either way the rows past the slow ones
+    are zeros."""
+    pairs = nb.pairs
     PC = pairs.qi.shape[0]
     slow_cap = max(pair_cap // 128, 32)
     slow_mask = (tc.cnt > 0) & ~tc.ok
@@ -863,39 +865,11 @@ def _slow_path(floes: FloeState, nb: "NarrowBatch", tc, pair_cap: int,
     ssel = first_true(slow_mask, slow_cap, PC)
     svalid = ssel < PC
     ssafe = torch.clamp(ssel, max=PC - 1)
-    i1 = pairs.qi[ssafe]
-    j1 = pairs.qj[ssafe]
-    shift1 = pairs.shift[ssafe]
-
-    def clip_rows(rows, pscale):
-        return intersect_regions(
-            floes.verts[i1[rows]], floes.nverts[i1[rows]],
-            q_verts[j1[rows]] + shift1[rows][:, None, :], q_n[j1[rows]],
-            CAP=clip_cap, perturb=perturb0[ssafe[rows]] * pscale,
-        )
-
-    sregions = clip_rows(slice(None), 1.0)
-    # second-chance perturbation: a contact whose crossing parity comes out
-    # odd is a degeneracy the default perturbation failed to break; rerun
-    # those rows with the perturbation flipped and scaled, keeping the retry
-    # wherever it resolves (rows beyond RETRY_CAP stay overflowed and the
-    # caller's flag fires)
-    bad1 = svalid & sregions.overflow
-    if retry:
-        retry_cap = min(RETRY_CAP, slow_cap)
-        bsel = first_true(bad1, retry_cap, slow_cap)
-        bvalid = bsel < slow_cap
-        bsafe = torch.clamp(bsel, max=slow_cap - 1)
-        regs2 = clip_rows(bsafe, -41.0)
-        idx = torch.where(bvalid & ~regs2.overflow, bsafe, slow_cap)
-
-        def put(a, b):
-            ext = torch.cat([a, a[:1]], dim=0)  # row slow_cap: dropped
-            ext[idx] = b
-            return ext[:slow_cap]
-
-        sregions = ClipRegions(*(put(a, b) for a, b in zip(sregions, regs2)))
-    return _SlowPairs(ssel, svalid, ssafe, i1, j1, shift1, sregions, n_slow, bad1)
+    retry_rows = min(RETRY_CAP, slow_cap) if retry else 0
+    sregions, bad1 = intersect_regions_dispatch(
+        *nb.two_cross_args()[:8], ssel, n_slow, clip_cap, retry_rows)
+    return _SlowPairs(ssel, svalid, ssafe, pairs.qi[ssafe], pairs.qj[ssafe],
+                      pairs.shift[ssafe], sregions, n_slow, bad1)
 
 
 def timestep_collisions(
@@ -961,7 +935,7 @@ def timestep_collisions(
     fast_ok = tc.ok
 
     # ---------------- slow path: general region kernel ---------------------
-    slow = _slow_path(floes, nb, tc, pair_cap, clip_cap, retry=True)
+    slow = _slow_path(nb, tc, pair_cap, clip_cap, retry=True)
     ssel, svalid, ssafe, sregions = slow.sel, slow.valid, slow.safe, slow.regions
     i1, j1, shift1, n_slow = slow.i, slow.j, slow.shift, slow.n_slow
     slow_cap = svalid.shape[0]
@@ -1122,7 +1096,7 @@ def pair_overlaps(
     PC = pairs.qi.shape[0]
     tc = two_cross_dispatch(*nb.two_cross_args())
     # multi-region / degenerate pairs through the general clip
-    slow = _slow_path(floes, nb, tc, pair_cap, clip_cap, retry=False)
+    slow = _slow_path(nb, tc, pair_cap, clip_cap, retry=False)
     slow_total = torch.where(slow.valid, slow.regions.total_area, 0.0)
     area = (
         tc.contain
@@ -1178,7 +1152,7 @@ def pair_interactions(
     )
 
     # slow path (multi-region contacts)
-    slow = _slow_path(floes, nb, tc, pair_cap, clip_cap, retry=False)
+    slow = _slow_path(nb, tc, pair_cap, clip_cap, retry=False)
     sides1 = _gather_sides(floes, nb.q_table, slow.i, slow.j)
     s_force, s_fp, s_rec = _region_forces(
         consts, dt, vals, sides1, slow.shift, slow.regions,

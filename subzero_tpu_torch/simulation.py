@@ -22,13 +22,12 @@ import torch
 from .constants import Constants
 from .core.domain import Domain
 from .core.model import Model
-from .geometry import two_cross as _two_cross
 from .physics import collisions as _collisions
 from .physics import coupling as _coupling
 from .physics import lifecycle_host as _lifecycle
 from .physics import simplification as _simplification
 from .physics import update_floe as _update_floe
-from .step_graph import StepGraph
+from .step_graph import KERNELS, StepGraph
 from .settings import (
     CollisionSettings,
     CouplingSettings,
@@ -322,21 +321,23 @@ HOST_PASSES = ("ridge_raft", "fracture", "weld", "smooth", "fuse")
 
 class _HostPass:
     """Times one host pass into ``state["seconds"][name]`` and counts the
-    narrow-phase kernel launches it made into ``state["launches"][name]``.
-    A pass starts by pulling the pool, so the time the device still needed
-    for the steps queued before it is counted to the pass."""
+    launches it made of each hand-written kernel (``step_graph.KERNELS``)
+    into ``state["launches"][kernel][name]``.  A pass starts by pulling the
+    pool, so the time the device still needed for the steps queued before
+    it is counted to the pass."""
 
     def __init__(self, state, name):
         self.state, self.name = state, name
 
     def __enter__(self):
         self.t0 = time.perf_counter()
-        self.l0 = _two_cross.launch_count()
+        self.l0 = {k: m.launch_count() for k, m in KERNELS.items()}
 
     def __exit__(self, *exc):
         st = self.state
         st["seconds"][self.name] += time.perf_counter() - self.t0
-        st["launches"][self.name] += _two_cross.launch_count() - self.l0
+        for k, m in KERNELS.items():
+            st["launches"][k][self.name] += m.launch_count() - self.l0[k]
         st["passes"][self.name] += 1
         return False
 
@@ -346,7 +347,7 @@ def _new_run_state(max_floe_id: int) -> dict:
         "max_floe_id": max_floe_id,
         "n_overflow": 0,
         "seconds": dict.fromkeys(HOST_PASSES, 0.0),
-        "launches": dict.fromkeys(HOST_PASSES, 0),
+        "launches": {k: dict.fromkeys(HOST_PASSES, 0) for k in KERNELS},
         "passes": dict.fromkeys(HOST_PASSES, 0),
     }
 

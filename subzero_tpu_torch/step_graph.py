@@ -24,12 +24,13 @@ pool:
     step that runs the host's ridge/raft pass between them (``run``).
 
 A program is warmed up once before its capture (run eagerly on a side
-stream, outputs dropped: cuBLAS handles, the narrow-phase kernel's library,
-the allocator), as ``torch.cuda.graphs`` asks.  Its narrow-phase launches
-are counted where they run: the warm-up's by the kernel's wrapper, a
-replay's by the graph (``two_cross.add_replayed``, the launches the
-program captured; ``chip_smoke.py``'s ``graph`` phase holds that count
-against the kernel's runs on the card, by torch.profiler).
+stream, outputs dropped: cuBLAS handles, the kernels' libraries, the
+allocator), as ``torch.cuda.graphs`` asks.  The launches of the step's
+hand-written kernels (``KERNELS``: the narrow phase and the slow clip) are
+counted where they run: the warm-up's by the kernel's wrapper, a replay's
+by the graph (``add_replayed``, the launches the program captured;
+``chip_smoke.py``'s ``graph`` phase holds that count against the kernels'
+runs on the card, by torch.profiler).
 
 A Simulation keeps its StepGraph (``Simulation.step_graph``), so a later
 ``run_scan`` or ``run`` replays the captures of an earlier one; a state of
@@ -52,17 +53,20 @@ import torch
 
 from .core.fields import OceanState
 from .core.floes import FloeState
+from .geometry import regions as _regions
 from .geometry import two_cross as _two_cross
 
+# the step's hand-written kernels, whose wrappers count their launches
+KERNELS = {"two_cross": _two_cross, "regions": _regions}
 
-_warmup_launches = 0
+_warmup_launches = dict.fromkeys(KERNELS, 0)
 
 
-def warmup_launch_count() -> int:
-    """Narrow-phase kernel launches made by every StepGraph's warm-ups so
+def warmup_launch_count(kernel: str = "two_cross") -> int:
+    """Launches of one of ``KERNELS`` made by every StepGraph's warm-ups so
     far (each program runs once eagerly before its capture; the launches
     are real and counted by the kernel's wrapper too).  Never reset."""
-    return _warmup_launches
+    return _warmup_launches[kernel]
 
 
 def _leaves(floes, ocean, domain) -> list:
@@ -120,7 +124,7 @@ class StepGraph:
         self.device = m.floes.verts.device
         self.capture = self.device.type == "cuda" and not _eager
         self.stats = {"captures": 0, "recaptures": 0, "capture_seconds": 0.0,
-                      "warmup_launches": 0, "replays": 0}
+                      "warmup_launches": dict.fromkeys(KERNELS, 0), "replays": 0}
         self._graphs = {}
         self._captured_launches = {}
         self.capture_pool_bytes = {}
@@ -134,8 +138,11 @@ class StepGraph:
         return all(a is b for a, b in zip(objs, objs2)) and vals == vals2
 
     def stats_since(self, before: dict) -> dict:
-        """``stats`` less an earlier copy of them: one run's counters."""
-        return {k: v - before[k] for k, v in self.stats.items()}
+        """``stats`` less an earlier copy of them: one run's counters (the
+        warm-ups' launches by kernel)."""
+        return {k: ({kk: vv - before[k][kk] for kk, vv in v.items()}
+                    if isinstance(v, dict) else v - before[k])
+                for k, v in self.stats.items()}
 
     # ------------------------------------------------------------------
     # static buffers
@@ -244,16 +251,18 @@ class StepGraph:
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
-        n0 = _two_cross.launch_count()
+        n0 = {k: m.launch_count() for k, m in KERNELS.items()}
         with torch.cuda.stream(side):
             self._compute(prog)  # warm-up: outputs dropped
         cur.wait_stream(side)
-        global _warmup_launches
-        n = _two_cross.launch_count() - n0
-        self.stats["warmup_launches"] += n
-        _warmup_launches += n
+        n = {k: m.launch_count() - n0[k] for k, m in KERNELS.items()}
+        # a new dict each time, so a shallow copy of the stats keeps its own
+        self.stats["warmup_launches"] = {
+            k: v + n[k] for k, v in self.stats["warmup_launches"].items()}
+        for k in KERNELS:
+            _warmup_launches[k] += n[k]
         graph = torch.cuda.CUDAGraph()
-        c0 = _two_cross.captured_count()
+        c0 = {k: m.captured_count() for k, m in KERNELS.items()}
         # torch.cuda.graph empties the allocator's cache as it starts; done
         # here first, the reserved memory's growth is the pool's own
         torch.cuda.empty_cache()
@@ -266,7 +275,8 @@ class StepGraph:
                 f"capturing the step's program {prog} as a CUDA graph failed"
             ) from e
         self.capture_pool_bytes[prog] = torch.cuda.memory_reserved(self.device) - r0
-        self._captured_launches[prog] = _two_cross.captured_count() - c0
+        self._captured_launches[prog] = {
+            k: m.captured_count() - c0[k] for k, m in KERNELS.items()}
         self._graphs[prog] = graph
         self.stats["captures"] += 1
         if prog in self._ever_captured:
@@ -284,12 +294,13 @@ class StepGraph:
         if prog not in self._graphs:
             self._capture(prog)
         self._graphs[prog].replay()
-        _two_cross.add_replayed(self._captured_launches[prog])
+        for k, m in KERNELS.items():
+            m.add_replayed(self._captured_launches[prog][k])
 
-    def captured_launches(self) -> dict:
-        """Each captured program with the narrow-phase launches it holds:
-        what one replay of it adds to the kernel's count."""
-        return dict(self._captured_launches)
+    def captured_launches(self, kernel: str = "two_cross") -> dict:
+        """Each captured program with the launches of one of ``KERNELS`` it
+        holds: what one replay of it adds to the kernel's count."""
+        return {p: n[kernel] for p, n in self._captured_launches.items()}
 
     def step_prog(self, tstep: int) -> tuple:
         return ("step", self.couples(tstep))

@@ -106,7 +106,7 @@ def run_at(n_ranks: int, group=None, device=None, n_dt=12) -> dict:
             "host_pass_seconds": sum(st["host_pass_seconds"].values()),
             "local_cap": st["local_cap"], "steps": st["steps"],
             "kernel_launches": st["kernel_launches"],
-            "host_pass_launches": sum(st["host_pass_launches"].values()),
+            "host_pass_launches": sum(st["host_pass_launches"]["two_cross"].values()),
             "final_active": int(sim.model.floes.active.sum()),
             "n_overflow": sim.n_overflow}
 

@@ -93,7 +93,7 @@ def overlap_query_terms(sim, floes, domain) -> dict:
 
     nb = C.narrow_phase_batch(floes, domain, sim.pair_cap, sim.bins)
     tc = C.two_cross_dispatch(*nb.two_cross_args())
-    slow = C._slow_path(floes, nb, tc, sim.pair_cap, sim.clip_cap, retry=False)
+    slow = C._slow_path(nb, tc, sim.pair_cap, sim.clip_cap, retry=False)
     out = {"pairs_overflow": bool(nb.pairs.overflow),
            "n_candidates": int(nb.pairs.valid.sum()),
            "n_slow": int(slow.n_slow), "slow_cap": int(slow.valid.shape[0]),

@@ -1,5 +1,6 @@
 """The port on the card: the narrow-phase CUDA kernel against its plain
-PyTorch version, the wrapper's checks, a short run_scan that goes through
+PyTorch version, the wrapper's checks, the slow clip's kernel against its
+g++ shim (bitwise) and its plain version, with n_slow read on the card, a short run_scan that goes through
 the kernel and agrees with the CPU run, the step's CUDA graph against the
 eager step (bitwise) and a capture that fails (it raises), ``pair_overlaps``
 on the card against the CPU, a 20-step ``run`` with a fracture pass, and the
@@ -13,8 +14,13 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 those of tests/test_pallas_clip.py, f64 rtol 1e-9 (kernel
-vs plain); 1e-6 of each field's largest magnitude for 10 f64 steps on the
-card vs the CPU (summation order only, amplified by contact dynamics).
+vs plain); the slow clip against its plain version on the card by
+``regions.held_against_plain`` (counts and flags as the plain version at the
+same dtype decides them, every floating field within ``LIMIT_SAME`` eps L^p
+of it, L the row's largest coordinate, areas and first moments within
+``LIMIT_F64`` eps L^p of the plain version in f64); 1e-6 of each
+field's largest magnitude for 10 f64 steps on the card vs the CPU
+(summation order only, amplified by contact dynamics).
 """
 
 import dataclasses
@@ -38,9 +44,11 @@ from subzero_tpu_torch.core import (
     make_model,
     make_ocean,
 )
+from subzero_tpu_torch.geometry import regions
 from subzero_tpu_torch.geometry import two_cross as tc_kernel
 from subzero_tpu_torch.geometry.clip import (
     TWO_CROSS_ARGS,
+    first_true,
     two_cross_dispatch,
     two_cross_pairs,
 )
@@ -60,6 +68,7 @@ from torch_port_helpers import (
     Ranks,
     assert_two_cross_close,
     build_pair_list,
+    build_regions_shim,
     cuda_or_skip,
     free_port,
     tt,
@@ -146,6 +155,69 @@ def test_cuda_kernel_zeroes_rows_with_an_index_outside_its_pool():
     assert_two_cross_close(type(got)(*(x[~bad] for x in got)), ref, True)
 
 
+def _slow_rows(dtype, dev, R=512):
+    """A pair list of star rings (V = 32) on the card and its slow
+    selection: the rows that cross but are no clean two-crossing contact,
+    the first R of them, and their count (more than R)."""
+    args = [a.to(dev) for a in tt(*build_pair_list(B=4096, seed=5, V=32, nmax=32,
+                                                    dtype=dtype))]
+    tc = two_cross_dispatch(*args)
+    slow = (tc.cnt > 0) & ~tc.ok
+    return args[:8], first_true(slow, R, args[4].shape[0]), slow.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_cuda_slow_clip_kernel_matches_shim_and_plain(dtype, tmp_path):
+    """The slow clip's kernel (clip and retry: two launches) on 512 slow rows
+    of a 6 144-row pair list, at n_slow above 512 and cut to 7 and to 0:
+    equal to the g++ shim to the bit, rows past n_slow zeros, held against
+    the plain version on the card by ``regions.held_against_plain`` (the
+    comparison chip_smoke.py makes); two launches give the same bits."""
+    dev = cuda_or_skip()
+    shim = build_regions_shim(tmp_path)
+    args, ssel, n_slow = _slow_rows(dtype, dev)
+    assert int(n_slow) > ssel.shape[0]
+    for n in (None, 7, 0):
+        sel, ns = (ssel, n_slow) if n is None else (
+            torch.where(torch.arange(ssel.shape[0], device=dev) < n, ssel,
+                        args[4].shape[0]), torch.tensor(n, device=dev))
+        for cap in (16, 32):
+            what = f"n_slow {n} CAP {cap}: "
+            before = regions.launch_count()
+            got, gbad = regions.intersect_regions_dispatch(*args, sel, ns, cap, 16)
+            torch.cuda.synchronize()
+            assert regions.launch_count() == before + 2
+            host, hbad = regions.run_host_shim(shim, *(x.cpu() for x in args), sel.cpu(),
+                                          ns.cpu(), cap, 16)
+            assert torch.equal(gbad.cpu(), hbad), what + "parity_bad"
+            for f, x, y in zip(got._fields, got, host):
+                assert torch.equal(x.cpu(), y), what + f
+            live = int(torch.clamp(ns, max=sel.shape[0]))
+            for f, x in zip(got._fields, got):
+                assert not bool(x[live:].any()), what + f + " past n_slow"
+            regions.held_against_plain(got, gbad, *args, sel, ns, cap, 16)
+            again, _ = regions.intersect_regions_dispatch(*args, sel, ns, cap, 16)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), what
+
+
+@pytest.mark.cuda
+def test_cuda_slow_clip_kernel_rejects_what_it_cannot_take():
+    dev = cuda_or_skip()
+    args, ssel, n_slow = _slow_rows(np.float32, dev, R=64)
+    with pytest.raises(ValueError, match="CAP <= 32"):
+        regions.intersect_regions_dispatch(*args, ssel, n_slow, 33, 16)
+    wide = torch.zeros((4096, 33, 2), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="at most 32 vertices"):
+        regions.intersect_regions_dispatch(wide, *args[1:], ssel, n_slow, 16, 16)
+    with pytest.raises(TypeError, match="n_slow"):
+        regions.intersect_regions_dispatch(*args, ssel, n_slow.int(), 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        regions.intersect_regions_dispatch(*args, ssel, n_slow.cpu(), 16, 16)
+    with pytest.raises(TypeError, match="ssel"):
+        regions.intersect_regions_dispatch(*args, ssel.int(), n_slow, 16, 16)
+
+
 def _small_sim(device, dtype=torch.float64):
     """40 Voronoi floes on a 15 x 15 periodic grid, shear ocean, two-way
     coupling every 10 steps, f64 unless ``dtype`` says otherwise."""
@@ -182,7 +254,7 @@ def test_cuda_run_scan_goes_through_kernel_and_matches_cpu():
     # program's warm-up before its capture
     graph = on_card.run_stats["graph"]
     assert graph["captures"] == 2 and graph["replays"] == n
-    assert tc_kernel.launch_count() == n + graph["warmup_launches"] == n + 2
+    assert tc_kernel.launch_count() == n + graph["warmup_launches"]["two_cross"] == n + 2
     on_cpu, _ = run_scan(_small_sim("cpu"), n)
     for f in ("centroid", "u", "v", "xi", "collision_force", "overarea"):
         g = getattr(on_card.model.floes, f).cpu()
@@ -208,7 +280,7 @@ def test_cuda_step_graph_replays_the_eager_step_bitwise():
         torch.cuda.synchronize()
         st = g.run_stats["graph"]
         assert st["captures"] == 2 and st["recaptures"] == 0 and st["replays"] == 21
-        assert tc_kernel.launch_count() == 21 + st["warmup_launches"]
+        assert tc_kernel.launch_count() == 21 + st["warmup_launches"]["two_cross"]
         e, _ = run_scan(dataclasses.replace(sim), 21, start_tstep=1, _eager=True)
         for name in ("floes", "ocean"):
             for f, x, y in zip(getattr(g.model, name)._fields, getattr(g.model, name),
@@ -301,7 +373,8 @@ def test_cuda_run_with_a_fracture_pass():
             torch.cuda.synchronize()
             st = out[where].run_stats
             assert st["host_pass_count"]["fracture"] == 1
-            assert st["host_pass_launches"]["fracture"] == 1
+            assert st["host_pass_launches"]["two_cross"]["fracture"] == 1
+            assert st["host_pass_launches"]["regions"]["fracture"] == 1
             assert tc_kernel.launch_count() >= st["steps"] + 1
     fc, fh = out["card"].model.floes, out["cpu"].model.floes
     assert all(x.is_cuda for x in fc)
@@ -357,7 +430,7 @@ def test_cuda_f32_drift_within_the_jax_bounds(scenario):
     tc_kernel.reset_launch_count()
     drift, sim = conservation_run(torch.float32, scenario, 5000)
     # 5 000 replays of the step's graph, and its warm-up before the capture
-    assert sim.run_stats["graph"]["warmup_launches"] == 1
+    assert sim.run_stats["graph"]["warmup_launches"]["two_cross"] == 1
     assert tc_kernel.launch_count() == 5000 + 1
     assert sim.model.floes.verts.is_cuda
     for k in ("ke", "px", "py"):

@@ -8,10 +8,11 @@ the CPU: what makes the step capturable, and the loop around the graph.
   on a bench field (coupling and plain steps, and the two halves), on the
   cut life-cycle pool of ``tests/data/lifecycle_step526_crowded.npz``, on a
   packed field whose slow path has slow pairs and runs its parity retry,
-  and with moving walls.  The narrow phase goes through the g++ build of
-  the kernel's arithmetic bound by ctypes, as the card's wrapper binds the
-  kernel: the plain version stands in for the kernel on the CPU only, and
-  trims its ring width by a read that the card never makes.
+  and with moving walls.  The narrow phase and the slow clip go through the
+  g++ builds of their kernels' arithmetic bound by ctypes, as the card's
+  wrappers bind the kernels: the plain versions stand in for the kernels on
+  the CPU only (the narrow phase's trims its ring width by a read that the
+  card never makes).
 * ``intersect_regions`` is row-independent: the first k rows of a batch
   give the same bits as a batch of those k rows, so the slow path's full
   ``slow_cap`` batch gives the step the tiers gave it.
@@ -47,7 +48,7 @@ from subzero_tpu_torch.core import make_atmos, make_grid, make_model, make_ocean
 from subzero_tpu_torch.core.domain import Domain, empty_topography
 from subzero_tpu_torch.core.floes import FloeState
 from subzero_tpu_torch.examples import many_floes, moving_bounds
-from subzero_tpu_torch.geometry import two_cross
+from subzero_tpu_torch.geometry import regions, two_cross
 from subzero_tpu_torch.geometry.clip import first_true, intersect_regions
 from subzero_tpu_torch.physics import collisions as tcol
 from subzero_tpu_torch.physics import coupling as tcpl
@@ -58,7 +59,13 @@ from subzero_tpu_torch.step_graph import StepGraph
 
 from test_collisions import CONSTS, CSET
 from test_torch_collisions_slow_path import PACKED_CASES, PERIODIC_DOMAIN, _packed_field
-from torch_port_helpers import build_host_shim, port_settings, port_state, run_host_shim_pairs
+from torch_port_helpers import (
+    build_host_shim,
+    build_regions_shim,
+    port_settings,
+    port_state,
+    run_host_shim_pairs,
+)
 
 POOL = Path(__file__).parent / "data" / "lifecycle_step526_crowded.npz"
 
@@ -109,6 +116,11 @@ def shim(tmp_path_factory):
     return build_host_shim(tmp_path_factory.mktemp("shim"))
 
 
+@pytest.fixture(scope="module")
+def regions_shim(tmp_path_factory):
+    return build_regions_shim(tmp_path_factory.mktemp("regions_shim"))
+
+
 def _pool_sim():
     """The cut life-cycle pool (f32, open box) with a still ocean."""
     z = np.load(POOL)
@@ -155,7 +167,7 @@ FIELDS = {
 
 
 @pytest.mark.parametrize("field", list(FIELDS))
-def test_step_body_reads_nothing_on_the_host(field, shim, monkeypatch):
+def test_step_body_reads_nothing_on_the_host(field, shim, regions_shim, monkeypatch):
     sim = FIELDS[field]()
     if field == "slow_pairs_and_parity_retry":
         dbg = _debug(sim)
@@ -166,6 +178,8 @@ def test_step_body_reads_nothing_on_the_host(field, shim, monkeypatch):
         assert 3 in sim.model.domain.kinds
     monkeypatch.setattr(tcol, "two_cross_dispatch",
                         lambda *a: run_host_shim_pairs(shim, *a))
+    monkeypatch.setattr(tcol, "intersect_regions_dispatch",
+                        lambda *a: regions.run_host_shim(regions_shim, *a))
     graph = StepGraph(sim)
     vals0 = graph.domain.vals.clone()
     with HostReads():
@@ -208,7 +222,7 @@ def test_intersect_regions_is_row_independent(dtype):
         part = intersect_regions(*(a[:k] for a in args), CAP=sim.clip_cap, perturb=pert[:k])
         for f, x, y in zip(full._fields, full, part):
             assert torch.equal(x[:k], y), (k, f)
-    slow = tcol._slow_path(sim.model.floes, nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
+    slow = tcol._slow_path(nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
     assert int(slow.n_slow) == n_slow and int(slow.valid.sum()) == n_slow
     part = intersect_regions(*(a[:n_slow] for a in args), CAP=sim.clip_cap,
                              perturb=pert[:n_slow])

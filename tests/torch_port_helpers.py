@@ -201,6 +201,17 @@ def run_host_shim(lib, pv, pn, qv, qn, pert):
     return run_host_shim_pairs(lib, *identity_pair_list(pv, pn, qv, qn, pert))
 
 
+def build_regions_shim(out_dir):
+    """g++ build of csrc/intersect_regions_host.cpp (the slow clip's per-row
+    arithmetic from intersect_regions.cuh, combined serially in the
+    kernel's order) into a ctypes library; skips without g++."""
+    from subzero_tpu_torch.geometry.regions import build_host_shim
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    return build_host_shim(out_dir)
+
+
 def cuda_or_skip():
     """The first CUDA device, or skip: the kernel runs only on the card."""
     if not torch.cuda.is_available():
