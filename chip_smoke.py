@@ -19,11 +19,14 @@ many_floes, restart_sim), and ``parallel.run_decomp`` as rank processes
 Phases (one JSON line each; any failure raises and the exit code is not 0):
 
   device    torch / CUDA versions, the card, its power limit
-  build     nvcc builds of the two kernel libraries (at once), seconds
+  build     nvcc builds of the two kernel libraries and, for the regions
+            and bench phases, the slow clip's clocked build (all at once),
+            seconds
   kernel    kernel vs its plain version (clip.two_cross_pairs), both fed ring
-            pools and a pair list: random star rings (V = 16 and 32, f32 and
-            f64, 6144 rows over pools of 4096, rings shared between rows,
-            some rows shifted, every 7th invalid) and the pair list
+            pools and a pair list: random star rings (V = 16, 32 and 40 (the
+            wide instantiation), f32 and f64, 6144 rows over pools of 4096,
+            rings shared between rows, some rows shifted, every 7th invalid;
+            times at V = 32 and 40) and the pair list
             timestep_collisions feeds the narrow phase on shear_flow_500
             after 20 steps (f32 and f64); then the kernel's times at the
             main path's batch: device_ms (its own device time, from
@@ -58,8 +61,9 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             pool at step 0 and after the run, the step's batch through the
             kernel and its plain version, and pair_overlaps and
             pair_interactions on the card against a CPU copy
-  regions   the slow clip's kernel (B2: clip and parity retry, n_slow read
-            on the card) against its g++ host shim, bitwise, and its plain
+  regions   the slow clip's kernel (B2: clip and parity retry in one launch,
+            n_slow read on the card) against its g++ host shim, bitwise, and
+            its plain
             version on the card (regions.held_against_plain: counts and
             flags as the plain version at the same dtype decides them,
             every floating field within LIMIT_SAME eps L^p of it, L the
@@ -67,17 +71,21 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             LIMIT_F64 eps L^p of the plain version in f64), f32 and f64, on
             the slow rows of shear_flow_500 and many_floes_8000 after 20
             steps and of the life-cycle pool after the lifecycle phase's
-            run, with n_slow cut to 0, and on lattice polygons whose
-            parities come out odd (the retry runs and resolves rows); the
-            kernels' own device time at each batch and at n_slow = 0, an
-            empty launch's, the plain version's, the bound
+            run, with n_slow cut to 0, on lattice polygons whose parities
+            come out odd (the retry runs and resolves rows), and on combs of
+            up to 40 vertices against bars (rings 40 wide, CAP 48, more than
+            32 crossings a row); the kernel's own device time at each batch
+            and at n_slow = 0, an empty launch's, the plain version's, the
+            bound; and where a row's time goes: the clocked build's SM
+            cycles by phase of the row's chain (median and 90th percentile
+            over the live rows; bench adds the 16k and 32k batches)
   graph     the step as a CUDA graph (step_graph.StepGraph, which
             run_scan, run and the bench replay on the card) against the same
             steps launched eagerly: one eager step of each program
             under torch.cuda.set_sync_debug_mode("error"); shear_flow_500
             (200 steps) and many_floes_8000 binned (50) through run_scan and
             the life-cycle run (601 steps of run, the lifecycle phase's) all
-            bitwise equal in f32, one B1 and two B2 launches a step each
+            bitwise equal in f32, one B1 and one B2 launch a step each
             side, held against the card's own count under replay; host
             synchronisations between run_scan's first and last step (none)
             and over the life-cycle run's first 100 steps by source line
@@ -180,10 +188,12 @@ last {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 With the bench phase, bench's five configurations run in turns, this tree's
 (the step's graph) and that checkout's own (a process of its code), with
 step_ms and peak memory of each; with the decomp phase, the distributed
-example's ranks of both run in turns.  Without the bench phase, for a commit whose kernel took
-materialised ring batches (two_cross_cuda(pv, pn, qv, qn, perturb)), a
-subprocess builds that kernel from DIR and times it on the same batches with
-the same functions, so both kernels are measured on one card in one run.
+example's ranks of both run in turns.  And both kernels (B1 and B2) of this
+tree and of that checkout (one whose slow clip takes pools, a pair list and
+a slow selection) run on the batches the phases gave them, in turns (this
+tree, a process of the checkout's code twice, this tree): each batch's own
+device time a call, and the outputs equal to the bit where the checkout's
+kernel takes the batch.
 
 On the card run_scan and run replay the step captured as a CUDA graph; each
 graph runs its program once eagerly before the capture (a warm-up), and those
@@ -395,29 +405,96 @@ def queued_ms(launch, n=50, reps=7) -> float:
     return statistics.median(times)
 
 
-def profiled_kernel_ms(launch, kernel_name, n=20, tries=3) -> float:
-    """The kernel's own device time, host taken out: torch.profiler over n
-    launches, mean device time of the kernels whose name holds
-    ``kernel_name``.  A trace now and then comes back without its device
-    events (or drops one at its edge): such a trace is taken again."""
+# torch.profiler traces that held only part of their measured launches'
+# device events (profiled_ms takes such a trace again): each one's kernel name
+# part, launches, events by kernel from the trace's own device events and
+# from key_averages, and the measured host calls with no device event; the
+# seconds line prints them
+PARTIAL_TRACES = []
+
+
+def traced_events(launch, name_part, n, lead=4):
+    """One torch.profiler trace of ``lead`` calls of ``launch`` and then n
+    measured ones: the profiler, the durations (ns) of the measured calls'
+    own device events whose name holds ``name_part``, by name (matched to
+    the measured calls' host launch calls by correlation id), and which of
+    those host calls (their order) have no device event in the trace.  The
+    first calls only lead: a trace's first launches can have no device
+    event, one early in a run and ten after some minutes (the H100 with
+    torch 2.11)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            launch()
+        with record_function("measured"):
+            for _ in range(n):
+                launch()
+        torch.cuda.synchronize()
+    ev = prof.profiler.kineto_results.events()
+    span = next(e for e in ev if e.name() == "measured")
+    calls = sorted((e.start_ns(), e.correlation_id()) for e in ev
+                   if e.device_type() == DeviceType.CPU and e.name().startswith("cu")
+                   and ("Launch" in e.name() or "Memset" in e.name())
+                   and span.start_ns() <= e.start_ns() <= span.end_ns())
+    mine = {c for _, c in calls}
+    by_name, on_card = {}, set()
+    for e in ev:
+        if e.device_type() == DeviceType.CUDA and e.correlation_id() in mine:
+            on_card.add(e.correlation_id())
+            if name_part in e.name():
+                by_name.setdefault(e.name(), []).append(e.duration_ns())
+    return prof, by_name, [k for k, (_, c) in enumerate(calls) if c not in on_card]
+
+
+def profiled_ms(launch, name_part, n=20, tries=6):
+    """(device ms a call, kernels a call, traces taken), host taken out:
+    torch.profiler over n calls of ``launch`` (traced_events), each of
+    which launches each kernel whose name holds ``name_part`` once (the
+    parent's slow clip two kernels, every other launch here one): the sum
+    of those kernels' mean device times, read from the trace's own device
+    events (each one whole kernel's time), and how many such kernels there
+    are.  A reading comes only from a whole trace, one that holds an event
+    of every measured launch of every such kernel: a trace that comes back
+    with some dropped is kept in PARTIAL_TRACES and taken again, with a
+    lead longer by the host calls it lost, up to ``tries`` traces, and if
+    none is whole AssertionError names the events each trace held."""
+    from torch.autograd import DeviceType
 
     launch()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                launch()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and kernel_name in e.key]
-        seen = sum(e.count for e in evs)
-        if seen >= n // 2:
-            return sum(dev_us(e) for e in evs) / 1e3 / seen
-    raise AssertionError(
-        f"profiler saw {seen} launches of {kernel_name} in its last of "
-        f"{tries} traces, expected {n}")
+    lead = 4
+    for k in range(tries):
+        prof, by_name, missing = traced_events(launch, name_part, n, lead)
+        counts = {name: len(d) for name, d in by_name.items()}
+        if by_name and not missing and all(c == n for c in counts.values()):
+            return (sum(sum(d) / n for d in by_name.values()) / 1e6, len(by_name), k + 1)
+        averaged = {e.key: e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and name_part in e.key}
+        PARTIAL_TRACES.append({"name": name_part, "launches": n, "lead": lead,
+                               "events": counts, "key_averages": averaged,
+                               "missing_launches": missing})
+        lead += (max(missing) + 1 if missing else 0) + 4
+    raise AssertionError(f"profiler: none of {tries} traces of {n} launches held "
+                         f"every event of {name_part}: {PARTIAL_TRACES[-tries:]}")
+
+
+def memset_ms(launch, n=20) -> dict:
+    """The memsets' mean device time over n calls of ``launch`` and the
+    number of memset events the trace held (traced_events); used for no
+    kernel's time."""
+    launch()
+    torch.cuda.synchronize()
+    d = traced_events(launch, "Memset", n)[1].get("Memset (Device)", [])
+    return {"device_ms": sum(d) / len(d) / 1e6 if d else None, "events": len(d),
+            "launches": n}
+
+
+def profiled_kernel_ms(launch, kernel_name, n=20) -> float:
+    """The kernel's own device time a launch, from a whole trace
+    (profiled_ms)."""
+    return profiled_ms(launch, kernel_name, n)[0]
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s;
@@ -426,6 +503,9 @@ def profiled_kernel_ms(launch, kernel_name, n=20, tries=3) -> float:
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12 / 2
 OPS_PER_EDGE_PAIR = 30  # one crossing test (two_cross.cuh:edge_crossing)
+# torch.profiler's names of B1's device functions hold this: two_cross_kernel
+# (rings up to 32 vertices) and two_cross_wide_kernel (wider)
+B1_EVENT = "two_cross_"
 OPS_PER_VERTEX = 3      # one shoelace term
 
 
@@ -450,15 +530,17 @@ def two_cross_bound(inputs, n_rows, pn, qn, live=None) -> dict:
             "operations": ops, "operations_ms": by_ops}
 
 
-def time_kernel(nb) -> dict:
-    """The kernel's times on one narrow-phase pair list (f32), its plain
-    version's, an empty launch's and the bound from this list's sizes."""
+def time_kernel(args) -> dict:
+    """The kernel's times on one narrow-phase pair list (its arguments,
+    clip.TWO_CROSS_ARGS; f32), its plain version's, an empty launch's and
+    the bound from this list's sizes."""
     from subzero_tpu_torch.geometry import two_cross
     from subzero_tpu_torch.geometry.clip import two_cross_pairs
 
-    args = nb.two_cross_args()
-    PC = int(nb.pairs.qi.shape[0])
-    buf = two_cross.alloc_output(PC, nb.p_verts.dtype, nb.p_verts.device)
+    p_verts, p_n, q_verts, q_n, qi, qj = args[:6]
+    valid = args[8]
+    PC = int(qi.shape[0])
+    buf = two_cross.alloc_output(PC, p_verts.dtype, p_verts.device)
 
     def launch():
         two_cross.launch_into(buf, *args)
@@ -472,19 +554,19 @@ def time_kernel(nb) -> dict:
     return {
         "B": PC,
         "device_ms_first_128_rows": profiled_kernel_ms(
-            lambda: two_cross.launch_into(buf, *head), "two_cross_kernel"),
+            lambda: two_cross.launch_into(buf, *head), B1_EVENT),
         "device_ms_no_row_valid": profiled_kernel_ms(
-            lambda: two_cross.launch_into(buf, *none_valid), "two_cross_kernel"),
-        "valid_rows": int(nb.pairs.valid.sum()),
+            lambda: two_cross.launch_into(buf, *none_valid), B1_EVENT),
+        "V": int(p_verts.shape[1]), "W": int(q_verts.shape[1]),
+        "valid_rows": int(valid.sum()),
         "plain_ms": median_ms(lambda: two_cross_pairs(*args)),
-        "device_ms": profiled_kernel_ms(launch, "two_cross_kernel"),
+        "device_ms": profiled_kernel_ms(launch, B1_EVENT),
         "queued_ms": queued_ms(launch),
         # the floor under any launch: an empty kernel timed the same two ways
         "empty_device_ms": profiled_kernel_ms(two_cross.empty_launch, "empty_kernel"),
         "empty_queued_ms": queued_ms(two_cross.empty_launch),
         "call_ms": median_ms(lambda: two_cross.two_cross_cuda(*args)),
-        **two_cross_bound(args, PC, nb.p_n[nb.pairs.qi], nb.q_n[nb.pairs.qj],
-                          live=nb.pairs.valid),
+        **two_cross_bound(args, PC, p_n[qi], q_n[qj], live=valid),
     }
 
 
@@ -493,6 +575,10 @@ def time_kernel(nb) -> dict:
 # ---------------------------------------------------------------------------
 
 OPS_PER_EDGE_PAIR_B2 = 25  # a crossing test of the slow clip, with its share of the rest
+# the wide batches: rings wider than a warp and more than 32 crossings a row
+# kept (the JAX package runs any width and any clip_cap)
+WIDE_V = 40
+WIDE_CAP = 48
 _REGIONS_SHIM = []
 
 
@@ -570,7 +656,7 @@ def regions_against(args, ssel, n_slow, cap, what) -> dict:
 
 
 def time_regions(args, ssel, n_slow, cap) -> dict:
-    """The slow clip's times on one slow batch: its kernels' own device time
+    """The slow clip's times on one slow batch: its kernel's own device time
     (torch.profiler), at this n_slow and at n_slow = 0, queued and whole
     call, an empty launch's, the plain version's, and the bound."""
     from subzero_tpu_torch.geometry import regions
@@ -582,15 +668,12 @@ def time_regions(args, ssel, n_slow, cap) -> dict:
     def launch(n=n_slow):
         return lambda: regions.launch_into(buf, *args, ssel, n, cap, retry_cap())
 
-    def own_ms(fn):
-        return {k: profiled_kernel_ms(fn, f"regions_{k}_kernel") for k in ("clip", "retry")}
-
-    at_n, at_0 = own_ms(launch()), own_ms(launch(zero))
     return {
-        "device_ms": at_n["clip"] + at_n["retry"], "clip_device_ms": at_n["clip"],
-        "retry_device_ms": at_n["retry"],
-        "device_ms_n_slow_0": at_0["clip"] + at_0["retry"],
+        "device_ms": profiled_kernel_ms(launch(), "regions_kernel"),
+        "device_ms_n_slow_0": profiled_kernel_ms(launch(zero), "regions_kernel"),
         "queued_ms": queued_ms(launch()), "queued_ms_n_slow_0": queued_ms(launch(zero)),
+        # the 8-byte memset of the call's ticket before the kernel
+        "ticket_memset": memset_ms(launch()),
         "empty_device_ms": profiled_kernel_ms(regions.empty_launch, "empty_kernel"),
         "empty_queued_ms": queued_ms(regions.empty_launch),
         "call_ms": median_ms(lambda: regions.regions_cuda(
@@ -600,6 +683,45 @@ def time_regions(args, ssel, n_slow, cap) -> dict:
         **regions_bound(args, ssel, n_slow, cap),
         "bound_ms_n_slow_0": regions_bound(args, ssel, zero, cap)["bound_ms"],
     }
+
+
+def sm_clocks() -> dict:
+    """The card's SM clock now and its maximum, MHz (nvidia-smi), to read
+    cycles as time."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+        now, peak = (float(x) for x in out.split(","))
+        return {"sm_mhz": now, "max_sm_mhz": peak}
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        return {"sm_mhz": None, "max_sm_mhz": None}
+
+
+def phase_cycles(args, ssel, n_slow, cap) -> dict:
+    """Where a slow row's time goes: one launch of the clocked build
+    (regions.clocked_cycles, -DSZ_REGIONS_CLOCK, built only for this) on the
+    batch; the median and 90th percentile over the live rows of the SM
+    cycles of each phase of a row's chain, of the whole chain, and of the
+    retry's chain over the rows that were retried."""
+    from subzero_tpu_torch.geometry import regions
+
+    clk = regions.clocked_cycles(*args, ssel, n_slow, cap, retry_cap())
+    live = min(int(n_slow), ssel.shape[0])
+    c = clk[:live].double().cpu()
+
+    def spread(x):
+        if not x.numel():
+            return None
+        return {"median": float(x.quantile(0.5)), "p90": float(x.quantile(0.9))}
+
+    phases = regions.CLOCK_PHASES
+    out = {name: spread(c[:, k]) for k, name in enumerate(phases[:-1])}
+    out["row_chain"] = spread(c[:, :len(phases) - 1].sum(1))
+    retried = c[:, -1]
+    out["retry"] = spread(retried[retried > 0])
+    return dict(out, rows=live, rows_retried=int((retried > 0).sum()), **sm_clocks())
 
 
 B2_BATCH_KEYS = ("device_ms", "device_ms_n_slow_0", "bound_ms", "bound_by",
@@ -613,14 +735,55 @@ def regions_on_batch(nb, pair_cap, cap, what, report) -> dict:
     args = nb.two_cross_args()[:8]
     ssel, n_slow = slow_selection(nb, pair_cap)
     a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    keep_for_parent(report, "regions", what, args, ssel, n_slow, cap)
     out = {"slow_cap": int(ssel.shape[0]), "n_slow": int(n_slow), "cap": cap,
            "float32": regions_against(args, ssel, n_slow, cap, what),
            "float64": regions_against(a64, ssel, n_slow, cap, what + " (f64)"),
-           "timing": time_regions(args, ssel, n_slow, cap)}
+           "timing": time_regions(args, ssel, n_slow, cap),
+           "cycles": phase_cycles(args, ssel, n_slow, cap)}
     report.setdefault("regions_by_batch", {})[what] = {
         "slow_cap": out["slow_cap"], "n_slow": out["n_slow"],
         **{k: out["timing"][k] for k in B2_BATCH_KEYS}}
     return out
+
+
+def wide_slow_rows(dev, seed=SEED, K=256, V=WIDE_V, max_cross=None):
+    """A slow batch of rings V wide (40 unless said) with up to
+    ``max_cross`` (V unless said) crossings a row (f32): combs of V / 4 - 2
+    to V / 4 teeth (4 vertices a tooth) against bars across their first
+    max_cross / 4 teeth (4 crossings a tooth), each bar a trapezoid (its
+    thickness grows along it, so no region's P-chain normal cancels), under
+    a random rotation, scale and shift.  Every row is slow (ssel 0..K-1)."""
+    rng = np.random.default_rng(seed)
+    pv, qv = np.zeros((K, V, 2)), np.zeros((K, V, 2))
+    pn, qn = np.zeros(K, np.int32), np.zeros(K, np.int32)
+    for k in range(K):
+        teeth = int(rng.integers(V // 4 - 2, V // 4 + 1))
+        w, gap, base, H = rng.uniform(0.5, 1.5), rng.uniform(1.5, 3), 2.0, 10.0
+        L = teeth * w + (teeth - 1) * gap
+        comb = [(0.0, 0.0), (L, 0.0)]
+        for m in range(teeth - 1, -1, -1):
+            xl = m * (w + gap)
+            comb += [(xl + w, base + H), (xl, base + H)]
+            if m > 0:
+                comb += [(xl, base), (xl - gap, base)]
+        y0 = base + rng.uniform(2, 4)
+        crossed = min(teeth, (max_cross or V) // 4)
+        end = L + 1.0 if crossed == teeth else crossed * (w + gap) - gap / 2
+        bar = [(-1.0, y0), (end, y0 - 0.5), (end, y0 + 4.0), (-1.0, y0 + 1.5)]
+        th, sc = rng.uniform(0, 2 * np.pi), 10.0 ** rng.uniform(2, 4)
+        rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        t = rng.uniform(-1e5, 1e5, 2)
+        for v, n, ring in ((pv, pn, comb), (qv, qn, bar)):
+            r = sc * np.asarray(ring) @ rot.T + t
+            v[k, :len(r)], v[k, len(r):], n[k] = r, r[-1], len(r)
+    pert = np.abs(pv).max(axis=(1, 2)) * 1e-9
+    idx = torch.arange(K, device=dev)
+    f = dict(dtype=torch.float32, device=dev)
+    args = (torch.tensor(pv, **f), torch.tensor(pn, device=dev), torch.tensor(qv, **f),
+            torch.tensor(qn, device=dev), idx, idx, torch.zeros((K, 2), **f),
+            torch.tensor(pert, **f))
+    return args, idx.clone(), torch.tensor(K, device=dev)
 
 
 def lattice_slow_rows(dev, seed=SEED, K=64):
@@ -683,6 +846,7 @@ def phase_regions(dev, report):
             args = nb.two_cross_args()[:8]
             none = torch.zeros((), dtype=torch.int64, device=dev)
             out["n_slow_0"] = regions_against(args, ssel, none, sim.clip_cap, "n_slow 0")
+            keep_for_parent(report, "regions", "n_slow 0", args, ssel, none, sim.clip_cap)
             report["regions_timing"] = out[name]["timing"]
         del sim, nb
         torch.cuda.empty_cache()
@@ -694,10 +858,46 @@ def phase_regions(dev, report):
                                                   "lifecycle pool", report),
                                  after_the_run="lifecycle_run" in report)
     args, ssel, n_slow = lattice_slow_rows(dev)
+    keep_for_parent(report, "regions", "lattice", args, ssel, n_slow, 16)
     out["retry_lattice"] = dict(regions_against(args, ssel, n_slow, 16, "lattice"),
-                                timing=time_regions(args, ssel, n_slow, 16))
+                                timing=time_regions(args, ssel, n_slow, 16),
+                                cycles=phase_cycles(args, ssel, n_slow, 16))
     if not out["retry_lattice"]["resolved_by_retry"]:
         raise AssertionError(f"the retry resolved no row: {out['retry_lattice']}")
+    report.setdefault("regions_by_batch", {})["lattice"] = {
+        "slow_cap": int(ssel.shape[0]), "n_slow": int(n_slow),
+        **{k: out["retry_lattice"]["timing"][k] for k in B2_BATCH_KEYS}}
+    # rings 40 wide, CAP 48: crossings past a warp's 32 lanes
+    args, ssel, n_slow = wide_slow_rows(dev)
+    what = f"wide V{WIDE_V} CAP {WIDE_CAP}"
+    keep_for_parent(report, "regions", what, args, ssel, n_slow, WIDE_CAP)
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    out["wide"] = {"V": WIDE_V, "cap": WIDE_CAP, "n_slow": int(n_slow),
+                   "float32": regions_against(args, ssel, n_slow, WIDE_CAP, what),
+                   "float64": regions_against(a64, ssel, n_slow, WIDE_CAP, what + " (f64)"),
+                   "timing": time_regions(args, ssel, n_slow, WIDE_CAP),
+                   "cycles": phase_cycles(args, ssel, n_slow, WIDE_CAP)}
+    kept = int(regions.regions_cuda(*args, ssel, n_slow, WIDE_CAP, 0)[0].n_cross.sum(1).max())
+    if kept <= 32:
+        raise AssertionError(f"{what}: no row kept more than 32 crossings ({kept})")
+    out["wide"]["most_crossings_kept"] = kept
+    report["regions_by_batch"][what] = {
+        "slow_cap": int(ssel.shape[0]), "n_slow": int(n_slow),
+        **{k: out["wide"]["timing"][k] for k in B2_BATCH_KEYS}}
+    # the widest the kernel takes: rings of 120-128 vertices (257 prefix-sum
+    # terms), 64 crossings a row at CAP 64; held_against_plain's limits of
+    # the summed fields grow with the terms there (regions.READ_VERTS)
+    V, cap = regions.MAX_VERTS, regions.MAX_CAP
+    args, ssel, n_slow = wide_slow_rows(dev, K=64, V=V, max_cross=cap)
+    what = f"widest V{V} CAP {cap}"
+    a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    out["widest"] = {"V": V, "cap": cap, "n_slow": int(n_slow),
+                     "float32": regions_against(args, ssel, n_slow, cap, what),
+                     "float64": regions_against(a64, ssel, n_slow, cap, what + " (f64)"),
+                     "timing": time_regions(args, ssel, n_slow, cap)}
+    report["regions_by_batch"][what] = {
+        "slow_cap": int(ssel.shape[0]), "n_slow": int(n_slow),
+        **{k: out["widest"]["timing"][k] for k in B2_BATCH_KEYS}}
     report["regions_max_abs_err"] = max(
         max(v.get("float32", v)["plain"]["max_abs"]["same_dtype"].values())
         for v in out.values())
@@ -711,61 +911,107 @@ def phase_regions(dev, report):
 # an earlier commit's kernel on the same batches (--parent)
 # ---------------------------------------------------------------------------
 
+def keep_for_parent(report, kernel: str, name: str, *batch) -> None:
+    """Keep a batch the main path gave a kernel (CPU copies of its tensors,
+    and its ints) so that --parent can run the parent's kernel on it."""
+    if not report.get("parent_dir"):
+        return
+    report.setdefault("parent_batches", {}).setdefault(kernel, {})[name] = tuple(
+        x.cpu() if torch.is_tensor(x) else x for x in batch)
+
+
+def time_kept_batches(batches, turns=1) -> tuple:
+    """B1's and B2's own device time a call on each kept batch, ``turns``
+    times, with the kernels of the code this process imports (this tree's,
+    or in the --parent worker the parent's), and their outputs.  A batch the
+    kernel refuses (ValueError: past its limits) is None."""
+    from subzero_tpu_torch.geometry import regions, two_cross
+
+    times, outs = {}, {}
+    for name, args in batches.get("two_cross", {}).items():
+        a = [x.cuda() for x in args]
+        key = "two_cross/" + name
+        try:
+            outs[key] = [x.cpu() for x in two_cross.two_cross_cuda(*a)]
+        except ValueError:
+            times[key] = outs[key] = None
+            continue
+        buf = two_cross.alloc_output(a[4].shape[0], a[0].dtype, a[0].device)
+        times[key] = [profiled_ms(lambda: two_cross.launch_into(buf, *a), B1_EVENT)
+                      for _ in range(turns)]
+    for name, (args, ssel, n_slow, cap) in batches.get("regions", {}).items():
+        a = [x.cuda() for x in args]
+        sel, ns = ssel.cuda(), n_slow.cuda()
+        key = "regions/" + name
+        try:
+            got, bad = regions.regions_cuda(*a, sel, ns, cap, retry_cap())
+        except ValueError:
+            times[key] = outs[key] = None
+            continue
+        outs[key] = [x.cpu() for x in (*got, bad)]
+        buf = regions.alloc_output(sel.shape[0], cap, a[0].dtype, a[0].device)
+        times[key] = [profiled_ms(
+            lambda: regions.launch_into(buf, *a, sel, ns, cap, retry_cap()), "regions_")
+            for _ in range(turns)]
+    return times, outs
+
+
 def parent_worker(path: str) -> int:
     """Runs with an earlier checkout as the working directory: builds that
-    checkout's kernel (materialised ring batches, one thread per pair, eight
-    outputs) and times it on the batches saved at ``path`` with this file's
-    timing functions.  Prints one JSON object."""
+    checkout's kernels and times them, twice in a row, on the batches kept
+    at ``path`` with this file's timing functions; saves their outputs
+    beside it.  Prints one JSON object."""
     sys.path.insert(0, os.getcwd())
-    from subzero_tpu_torch.geometry import two_cross as tc
-    from subzero_tpu_torch.geometry.clip import sliver_tol
+    from subzero_tpu_torch.geometry import regions, two_cross
 
-    info = tc.build(force=True)
-    lib = tc._load()
-    out = {"ptxas": [ln.strip() for ln in info["log"].splitlines()
-                     if "registers" in ln or "spill" in ln]}
-    if hasattr(lib, "sz_empty_launch"):
-        raise RuntimeError("--parent wants a checkout from before the kernel took pools")
-    for name, batch in torch.load(path).items():
-        pv, pn, qv, qn, pert = (x.cuda() for x in batch)
-        res = tc.two_cross_cuda(pv, pn, qv, qn, pert)  # outputs allocated once
-        outs = [getattr(res, f).data_ptr() for f in
-                ("cnt", "ok", "contain", "area", "centroid", "chord_a",
-                 "chord_b", "p_norm")]
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def launch():
-            rc = lib.sz_two_cross_f32(
-                pv.data_ptr(), pn.data_ptr(), qv.data_ptr(), qn.data_ptr(),
-                pert.data_ptr(), pv.shape[0], pv.shape[1], qv.shape[1],
-                sliver_tol(pv.dtype), *outs, stream)
-            if rc != 0:
-                raise RuntimeError(f"launch failed ({rc})")
-
-        out[name] = {
-            "B": int(pv.shape[0]),
-            "device_ms": profiled_kernel_ms(launch, "two_cross_kernel"),
-            "queued_ms": queued_ms(launch),
-            "call_ms": median_ms(lambda: tc.two_cross_cuda(pv, pn, qv, qn, pert)),
-            **two_cross_bound((pv, pn, qv, qn, pert), pv.shape[0], pn, qn),
-        }
-    print(json.dumps(out), flush=True)
+    logs = [k.build(force=True)["log"] for k in (two_cross, regions)]
+    times, outs = time_kept_batches(torch.load(path), turns=2)
+    torch.save(outs, path + ".out")
+    print(json.dumps({"times": times, "ptxas": [
+        ln.strip() for log in logs for ln in log.splitlines()
+        if "registers" in ln or "spill" in ln]}), flush=True)
     return 0
 
 
-def time_parent_kernel(parent_dir: str, batches: dict) -> dict:
-    """Times the kernel of the checkout at ``parent_dir`` on ``batches``
-    (name -> materialised (pv, pn, qv, qn, perturb)) in a subprocess."""
+def kernels_vs_parent(parent_dir: str, report) -> dict:
+    """Both kernels of this tree and of the checkout at ``parent_dir`` on
+    the batches the phases kept, in turns: this tree, the parent twice (a
+    process of its own code), this tree; each batch's own device time a
+    call and kernels a call, and whether the outputs are equal to the bit
+    (they must be, where the parent takes the batch: B1's first
+    instantiation is the parent's code, and B2 equals its shim in both)."""
+    batches = report["parent_batches"]
+    first, ours = time_kept_batches(batches)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "batches.pt")
-        torch.save({k: tuple(x.cpu() for x in v) for k, v in batches.items()}, path)
+        torch.save(batches, path)
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(parent_dir))
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--parent-worker", path],
-            cwd=parent_dir, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"timing the kernel of {parent_dir} failed:\n"
-                           + proc.stdout + proc.stderr)
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+            cwd=parent_dir, env=env, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the kernels of {parent_dir} failed:\n"
+                               + proc.stdout[-3000:] + proc.stderr[-3000:])
+        parent = json.loads(proc.stdout.strip().splitlines()[-1])
+        theirs = torch.load(path + ".out")
+    last, _ = time_kept_batches(batches)
+    out = {}
+    for key, mine in ours.items():
+        p = parent["times"][key]
+        same = None
+        if theirs[key] is not None:
+            same = all(torch.equal(x, y) for x, y in zip(mine, theirs[key]))
+            if not same:
+                raise AssertionError(f"{key}: this tree's kernel and the parent's differ")
+        out[key] = {"order": "this tree, parent, parent, this tree",
+                    "ms": [first[key][0][0], *(t[0] for t in p or []), last[key][0][0]],
+                    # each reading from a whole trace, the n-th taken
+                    "trace_taken": [first[key][0][2], *(t[2] for t in p or []),
+                                    last[key][0][2]],
+                    "kernels_a_call": {"this_tree": first[key][0][1],
+                                       "parent": p[0][1] if p else None},
+                    "bitwise_equal": same}
+    return dict(out, parent_ptxas=parent["ptxas"])
 
 
 # a checkout's own bench on one configuration, in a process of its own: the
@@ -822,8 +1068,9 @@ _WARMUPS_AT_RESET = {"two_cross": 0, "regions": 0}
 
 
 def b2_per_step() -> int:
-    """The slow clip's launches in one timestep_collisions: the clip and its
-    parity retry (pair_overlaps and pair_interactions make the clip only)."""
+    """The slow clip's launches in one timestep_collisions: one, the clip
+    with its parity retry (pair_overlaps and pair_interactions make one
+    without the retry)."""
     from subzero_tpu_torch.geometry import regions
 
     return regions.LAUNCHES_WITH_RETRY
@@ -905,8 +1152,8 @@ def replay_from(sim, n_steps, **kw):
 
 
 # the names of each kernel's device functions, as torch.profiler lists them
-KERNEL_EVENTS = {"two_cross": ("two_cross_kernel",),
-                 "regions": ("regions_clip_kernel", "regions_retry_kernel")}
+KERNEL_EVENTS = {"two_cross": ("two_cross_kernel", "two_cross_wide_kernel"),
+                 "regions": ("regions_kernel",)}
 
 
 def runs_under_replay(fn, n_expected, tries=3, kernel="two_cross") -> int:
@@ -1010,10 +1257,9 @@ def bitwise_report(got, ref) -> dict:
 
 def check_main_path_batch(nb, report_key, report) -> dict:
     """Kernel vs plain on a NarrowBatch of the main path, f32 as fed and
-    cast to f64; keeps the materialised rings for --parent."""
+    cast to f64; keeps the batch for --parent."""
     from subzero_tpu_torch.geometry.clip import two_cross_pairs
     from subzero_tpu_torch.geometry.two_cross import two_cross_cuda
-    from subzero_tpu_torch.physics.collisions import ring_batch
 
     args = nb.two_cross_args()
     valid = nb.pairs.valid
@@ -1021,7 +1267,7 @@ def check_main_path_batch(nb, report_key, report) -> dict:
     err32 = compare_two_cross(got, ref, False, valid)
     a64 = tuple(a.double() if a.is_floating_point() else a for a in args)
     err64 = compare_two_cross(two_cross_cuda(*a64), two_cross_pairs(*a64), True, valid)
-    report.setdefault("parent_batches", {})[report_key] = ring_batch(nb)
+    keep_for_parent(report, "two_cross", report_key, *args)
     return {"B": int(valid.shape[0]), "valid_pairs": int(valid.sum()),
             "two_crossing_ok": int(ref.ok.sum()),
             "max_abs_err_f32": err32, "max_abs_err_f64": err64,
@@ -1034,8 +1280,9 @@ def phase_kernel(dev, report):
     from subzero_tpu_torch.physics.collisions import narrow_phase_batch
     from subzero_tpu_torch.simulation import run_scan
 
-    synthetic = {}
-    for dtype, V in ((np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32)):
+    synthetic, wide = {}, {}
+    for dtype, V in ((np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32),
+                     (np.float32, WIDE_V), (np.float64, WIDE_V)):
         args = to_device(build_pair_list(4096, V, V, dtype, seed=V), dev)
         got = two_cross_cuda(*args)
         ref = two_cross_pairs(*args)
@@ -1049,15 +1296,21 @@ def phase_kernel(dev, report):
         again = two_cross_cuda(*args)
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError(f"synthetic batch {name}: two launches differ")
+        if dtype == np.float32 and V in (32, WIDE_V):
+            # rings of 32 vertices (the first instantiation) against 40 (the
+            # wide one) on lists of one size
+            wide[name] = time_kernel(args)
+            keep_for_parent(report, "two_cross", f"synthetic {name}", *args)
+    report["timing_wide"] = wide[f"float32_V{WIDE_V}"]
 
     # the pair list the main path gives the kernel: shear_flow_500 after 20 steps
     sim, _ = run_scan(build_sim(500, 1e5, 2e3, device=dev, dtype=torch.float32), 20)
     nb = narrow_phase_batch(sim.model.floes, sim.model.domain, sim.pair_cap)
     main_path = check_main_path_batch(nb, "shear_flow_500", report)
-    timing = time_kernel(nb)
+    timing = time_kernel(nb.two_cross_args())
     report.update(max_abs_err=main_path["max_abs_err_f32"], timing=timing)
     emit("kernel", synthetic_max_abs_err=synthetic, main_path=main_path,
-         timing=timing)
+         timing=timing, synthetic_timing=wide)
 
 
 def phase_slice(dev, report):
@@ -1124,7 +1377,7 @@ def phase_many_floes(dev, report):
     sim = build_sim(2000, 2e5, 2e3, device=dev, dtype=torch.float32)
     nb = narrow_phase_batch(sim.model.floes, sim.model.domain, sim.pair_cap)
     check = check_main_path_batch(nb, "many_floes_2000", report)
-    timing = time_kernel(nb)
+    timing = time_kernel(nb.two_cross_args())
     run_scan(fork(sim), 5)  # warm-up
     _, nums = run_timed(sim, 50)
     emit("many_floes_2000", dtype="float32", kernel_timing=timing,
@@ -1174,7 +1427,7 @@ def phase_binned(dev, report):
             f"binned and dense candidate lists differ: {len(rows_b)} vs {len(rows_d)} pairs")
     nb = narrow_phase_batch(fl, dom, sim.pair_cap, sim.bins)
     check = check_main_path_batch(nb, "many_floes_8000", report)
-    timing = time_kernel(nb)
+    timing = time_kernel(nb.two_cross_args())
     counters = counters_card_vs_cpu(sim)
     report["launches_by_path"]["timestep_collisions with_debug (counters, many_floes_8000)"] = \
         counters["kernel_launches"]
@@ -3206,7 +3459,7 @@ def phase_bench(dev, report):
             nb = narrow_phase_batch(sim.model.floes, sim.model.domain, sim.pair_cap,
                                     sim.bins)
             kernel[name] = {"check": check_main_path_batch(nb, name, report),
-                            "timing": time_kernel(nb)}
+                            "timing": time_kernel(nb.two_cross_args())}
             # the slow clip on the slow rows 20 steps in (none at step 0)
             m = run_scan(fork(sim), 20)[0].model
             nb = narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
@@ -3545,10 +3798,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of "
                     + ",".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--parent", metavar="DIR", default=None,
-                    help="a checkout of an earlier commit: with the bench "
-                    "phase, its bench and this tree's in turns; otherwise "
-                    "(a commit whose kernel took materialised ring batches) "
-                    "its kernel timed on the same batches")
+                    help="a checkout of an earlier commit: its kernels and "
+                    "this tree's on the phases' batches in turns, and with "
+                    "the bench phase its bench and this tree's in turns")
     ap.add_argument("--parent-worker", metavar="FILE", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--decomp-rank", metavar="FILE", default=None,
@@ -3585,10 +3837,14 @@ def main(argv=None) -> int:
 
     from subzero_tpu_torch.geometry import regions, two_cross
 
-    # one nvcc a kernel library, both at once
-    with ThreadPoolExecutor(2) as pool:
+    # one nvcc a kernel library, all at once (the slow clip's clocked
+    # build only where the regions phase reads it)
+    with ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(k.build, force=True) for k in (two_cross, regions)]
+        clocked = (pool.submit(regions.build_clocked, force=True)
+                   if {"regions", "bench"} & set(phases) else None)
         info, info_b2 = (b.result() for b in builds)
+        info_clock = clocked.result() if clocked else None
 
     def ptxas_of(build):
         return [ln.strip() for ln in build["log"].splitlines()
@@ -3604,6 +3860,8 @@ def main(argv=None) -> int:
     emit("build", seconds=info["seconds"], library=info["path"], ptxas=ptxas_of(info),
          slow_clip={"seconds": info_b2["seconds"], "library": info_b2["path"],
                     "ptxas": ptxas_of(info_b2)},
+         slow_clip_clocked=info_clock and {"seconds": info_clock["seconds"],
+                                           "ptxas": ptxas_of(info_clock)},
          native_clip={"served_by": "native" if native.available() else "python",
                       "library": str(native.LIB_PATH),
                       "seconds": time.perf_counter() - t0})
@@ -3637,10 +3895,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         emit("bench_vs_parent", checkout=opts.parent, **bench_in_turns(opts.parent, dev))
         seconds["bench_vs_parent"] = time.perf_counter() - t0
-    emit("seconds", by_phase=seconds)
-    if opts.parent and "bench" not in phases and report.get("parent_batches"):
-        emit("parent_kernel", checkout=opts.parent,
-             **time_parent_kernel(opts.parent, report["parent_batches"]))
+    if opts.parent and report.get("parent_batches"):
+        t0 = time.perf_counter()
+        emit("kernels_vs_parent", checkout=opts.parent,
+             **kernels_vs_parent(opts.parent, report))
+        seconds["kernels_vs_parent"] = time.perf_counter() - t0
+    emit("seconds", by_phase=seconds, partial_traces_taken_again=PARTIAL_TRACES)
 
     from subzero_tpu_torch import step_graph
 
@@ -3675,10 +3935,14 @@ def main(argv=None) -> int:
         "empty_device_ms": t.get("empty_device_ms"),
         "empty_queued_ms": t.get("empty_queued_ms"),
         "call_ms": t.get("call_ms"),
+        # the wide instantiation (rings of 40 vertices, the kernel phase's
+        # star rings, 6 144 rows): its own device time, plain, bound
+        "wide": {k: report.get("timing_wide", {}).get(k)
+                 for k in ("B", "V", "device_ms", "plain_ms", "bound_ms", "bound_by")},
     }, {
         # the slow clip at shear_flow_500's slow batch after 20 steps (the
-        # regions phase): ms is its two kernels' own device time, clip and
-        # retry; launches is the slice phase's count (two a step)
+        # regions phase): ms is its kernel's own device time, clip and retry
+        # in one launch; launches is the slice phase's count (one a step)
         "name": "intersect_regions",
         "route": "cuda",
         "source": "subzero_tpu_torch/csrc/intersect_regions.cu",
@@ -3695,9 +3959,10 @@ def main(argv=None) -> int:
         "bound_by": t2.get("bound_by"),
         "library_ms": None,  # no one PyTorch call computes this function
         **{k: t2.get(k) for k in ("device_ms_n_slow_0", "bound_ms_n_slow_0",
-                                  "clip_device_ms", "retry_device_ms", "queued_ms",
-                                  "empty_device_ms", "call_ms", "live_rows")},
-        # every slow batch of this run (regions and bench phases)
+                                  "queued_ms", "empty_device_ms", "call_ms",
+                                  "live_rows")},
+        # every slow batch of this run (regions and bench phases; the
+        # lattice's retries and the wide rings' CAP 48 among them)
         "by_batch": report.get("regions_by_batch", {}),
     }]}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -14,7 +14,7 @@
 //      the keys i + t (along P) and j + u (along Q) (rank_before);
 //   4. each crossing's outgoing arc (along P where P's edge enters Q,
 //      denom < 0, else along Q) is integrated from doubled prefix sums of
-//      the ring's per-edge terms (ring_sums, arc);
+//      the ring's per-edge terms (edge_term, ring_sums, arc);
 //   5. the arcs' successor function is a permutation whose cycles are the
 //      overlap regions: labels by pointer doubling, each cycle labelled by
 //      its least crossing index;
@@ -28,9 +28,9 @@
 // every reduction; the CUDA kernel (intersect_regions.cu, a warp a row) and
 // the CPU shim (intersect_regions_host.cpp, built by g++ for the CPU tests)
 // combine them in that order, so they agree to the bit:
-//   * the prefix sums run in ascending doubled-edge order and accumulate in
-//     double, each entry rounded to T (torch.cumsum on the CPU does the same,
-//     so the arcs equal the plain version's on the CPU to the bit);
+//   * each prefix sum runs in ascending doubled-edge order and accumulates
+//     in double, each entry rounded to T (torch.cumsum on the CPU does the
+//     same, so the arcs equal the plain version's on the CPU to the bit);
 //   * a region's sums add its crossings' arcs in ascending crossing index,
 //     from zero, in T;
 //   * the ring areas add their shoelace terms in ascending edge order, from
@@ -50,9 +50,15 @@
 namespace sz {
 namespace regions {
 
-constexpr int kMaxCap = 32;    // crossings a row keeps: one a lane
-constexpr int kMaxVerts = 32;  // ring width: one vertex a lane
-constexpr int kPre = 2 * kMaxVerts + 1;  // entries of a doubled prefix sum
+// The widest shapes the kernel takes (geometry/regions.py checks them
+// before a launch): CAP crossing slots a row, two a lane, and rings of V and
+// W vertices, so that a warp's scratch in f64 fits a block with room to
+// spare (intersect_regions.cu:Scratch).
+constexpr int kMaxCap = 64;
+constexpr int kMaxVerts = 128;
+
+// Entries of a doubled prefix sum of a ring of width V.
+SZ_HD int pre_len(int V) { return 2 * V + 1; }
 
 SZ_HD float sqrt_t(float x) { return sqrtf(x); }
 SZ_HD double sqrt_t(double x) { return sqrt(x); }
@@ -69,6 +75,18 @@ struct Out {
   int *ncross, *pcnt, *qcnt;
   unsigned char *valid, *overflow, *parity_bad;
 };
+
+// Bytes of that layout (geometry/regions.py:output_bytes).
+SZ_HD long long out_bytes(long long R, int cap, int elt) {
+  return R * (1 + 10LL * cap) * elt + 12LL * R * cap + R * cap + 2 * R;
+}
+
+// The retry's scratch (intersect_regions.cu) holds R rows in that layout, R
+// bytes of flags, then the launch's 8-byte ticket at this offset, 8-byte
+// aligned (geometry/regions.py:scratch_bytes).
+SZ_HD long long ticket_offset(long long R, int cap, int elt) {
+  return (out_bytes(R, cap, elt) + R + 7) / 8 * 8;
+}
 
 template <typename T>
 SZ_HD Out<T> out_views(void* base, long long R, int cap) {
@@ -127,14 +145,20 @@ SZ_HD Terms<T> seg_terms(T ax, T ay, T bx, T by) {
                   sqrt_t(dx * dx + dy * dy)};
 }
 
-// Doubled prefix sums of a ring's edge terms, pre[q * kPre + m] for the terms
-// q = s, mx, my, len over the first m edges of the ring walked twice
-// (m <= 2n); returns the ring's shoelace sum (its edges' cross products in
-// ascending order, from zero).  Vertices (x[k], y[k]), k < n.
+// Terms a kernel keeps of each edge: seg_terms' four (s, mx, my, len) and
+// its shoelace term (shoelace_term, the cross product), in this order.
+constexpr int kTerms = 5;
+
+// Doubled prefix sums of a ring's edge terms, pre[q * stride + m] for the
+// terms q = s, mx, my, len over the first m edges of the ring walked twice
+// (m <= 2n; stride >= 2n + 1); returns the ring's shoelace sum (its edges'
+// cross products in ascending order, from zero).  Vertices (x[k], y[k]),
+// k < n.  The kernel runs each term's chain on a lane of its own, in this
+// order.
 template <typename T>
-SZ_HD T ring_sums(const T* x, const T* y, int n, T* pre) {
+SZ_HD T ring_sums(const T* x, const T* y, int n, T* pre, int stride) {
   double acc[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int q = 0; q < 4; ++q) pre[q * kPre] = T(0);
+  for (int q = 0; q < 4; ++q) pre[q * stride] = T(0);
   for (int m = 0; m < 2 * n; ++m) {
     const int e = m < n ? m : m - n;
     const int e2 = next_vertex(e, n);
@@ -143,7 +167,7 @@ SZ_HD T ring_sums(const T* x, const T* y, int n, T* pre) {
     acc[1] += static_cast<double>(d.mx);
     acc[2] += static_cast<double>(d.my);
     acc[3] += static_cast<double>(d.len);
-    for (int q = 0; q < 4; ++q) pre[q * kPre + m + 1] = T(acc[q]);
+    for (int q = 0; q < 4; ++q) pre[q * stride + m + 1] = T(acc[q]);
   }
   T shoe = T(0);
   for (int e = 0; e < n; ++e) {
@@ -161,14 +185,15 @@ struct Arc {
   int cnt;
 };
 
-// Line integrals along the ring (x, y, n; prefix sums pre) from the crossing
+// Line integrals along the ring (x, y, n; prefix sums pre, each term's
+// ``stride`` entries apart) from the crossing
 // (xk, yk) on edge ek at parameter tk forward to the crossing (x2, y2) on
 // edge e2 at t2: one segment where both lie on one edge in that order, else
 // the piece to the end of edge ek, the full edges between, and the piece
 // from the start of edge e2.
 template <typename T>
-SZ_HD Arc<T> arc(const T* x, const T* y, int n, const T* pre, T xk, T yk,
-                 int ek, T tk, T x2, T y2, int e2, T t2) {
+SZ_HD Arc<T> arc(const T* x, const T* y, int n, const T* pre, int stride,
+                 T xk, T yk, int ek, T tk, T x2, T y2, int e2, T t2) {
   if (e2 == ek && t2 > tk) {
     const Terms<T> d = seg_terms(xk, yk, x2, y2);
     return Arc<T>{d.s, d.mx, d.my, d.len, 1};
@@ -183,9 +208,9 @@ SZ_HD Arc<T> arc(const T* x, const T* y, int n, const T* pre, T xk, T yk,
   const T* hi = pre + e0 + cnt_full;
   Arc<T> a;
   a.s = (d1.s + (hi[0] - lo[0])) + d2.s;
-  a.mx = (d1.mx + (hi[kPre] - lo[kPre])) + d2.mx;
-  a.my = (d1.my + (hi[2 * kPre] - lo[2 * kPre])) + d2.my;
-  a.len = (d1.len + (hi[3 * kPre] - lo[3 * kPre])) + d2.len;
+  a.mx = (d1.mx + (hi[stride] - lo[stride])) + d2.mx;
+  a.my = (d1.my + (hi[2 * stride] - lo[2 * stride])) + d2.my;
+  a.len = (d1.len + (hi[3 * stride] - lo[3 * stride])) + d2.len;
   a.cnt = 2 + cnt_full;
   return a;
 }
@@ -221,10 +246,11 @@ SZ_HD ArcSums<T> arc_sums(const Cross<T>& c, const Arc<T>& a, T x2, T y2) {
   return r;
 }
 
-// Rounds of pointer doubling that label every cycle of CAP slots.
-SZ_HD int label_rounds(int cap) {
+// Rounds of pointer doubling that label every cycle of n slots (2^rounds
+// >= n >= the longest cycle; more rounds change no label).
+SZ_HD int label_rounds(int n) {
   int bits = 0;
-  for (int v = cap - 1; v > 0; v >>= 1) ++bits;
+  for (int v = n - 1; v > 0; v >>= 1) ++bits;
   return bits > 1 ? bits : 1;
 }
 

@@ -5,10 +5,13 @@
 //       -o libregions_host.so intersect_regions_host.cpp
 //
 // Same interface as the CUDA library (pools, pair list, slow selection, the
-// slow-row count, one packed output) without the stream, and the same order
-// of combination as the kernel, done serially: crossings in (i, j) order,
-// i outer; prefix sums, region sums, ring areas and the total in the
-// header's orders; the retry's rows in row order.
+// slow-row count, one packed output) without the stream and the retry's
+// scratch, at any ring widths V, W and any CAP, and the same order of
+// combination as the kernel, done serially: crossings in (i, j) order, i
+// outer; prefix sums, region sums, ring areas and the total in the header's
+// orders; the retry's rows in row order.
+#include <vector>
+
 #include "intersect_regions.cuh"
 
 namespace {
@@ -62,7 +65,7 @@ void clip_row(const Inputs<T>& in, const rg::Out<T>& o, int row, long long sel,
   const T pert = in.perturb[sel] * pscale;
   const T ox = sz::perturb_x(pert), oy = pert;
   const T shx = in.shift[2 * sel], shy = in.shift[2 * sel + 1];
-  T px[rg::kMaxVerts], py[rg::kMaxVerts], qx[rg::kMaxVerts], qy[rg::kMaxVerts];
+  std::vector<T> px(in.V), py(in.V), qx(in.W), qy(in.W);
   for (int k = 0; k < in.V; ++k) {
     px[k] = in.pverts[(i * in.V + k) * 2];
     py[k] = in.pverts[(i * in.V + k) * 2 + 1];
@@ -73,7 +76,7 @@ void clip_row(const Inputs<T>& in, const rg::Out<T>& o, int row, long long sel,
   }
 
   // ---- 1-2. crossings in (i, j) order, the first CAP kept ----------------
-  rg::Cross<T> c[rg::kMaxCap];
+  std::vector<rg::Cross<T>> c(cap);
   int count = 0;
   for (int e = 0; e < np; ++e) {
     const int e2 = sz::next_vertex(e, np);
@@ -91,15 +94,15 @@ void clip_row(const Inputs<T>& in, const rg::Out<T>& o, int row, long long sel,
       ++count;
     }
   }
-  T preP[4 * rg::kPre], preQ[4 * rg::kPre];
-  const T areaP = sz::ring_area(rg::ring_sums(px, py, np, preP));
-  const T areaQ = sz::ring_area(rg::ring_sums(qx, qy, nq, preQ));
+  const int sP = rg::pre_len(in.V), sQ = rg::pre_len(in.W);
+  std::vector<T> preP(4 * sP), preQ(4 * sQ);
+  const T areaP = sz::ring_area(rg::ring_sums(px.data(), py.data(), np, preP.data(), sP));
+  const T areaQ = sz::ring_area(rg::ring_sums(qx.data(), qy.data(), nq, preQ.data(), sQ));
   const int C = count < cap ? count : cap;
   const bool overflow = rg::overflowed(count, cap);
 
   // ---- 3. ranks and next pointers ------------------------------------------
-  int nxtP[rg::kMaxCap], nxtQ[rg::kMaxCap], rankP[rg::kMaxCap],
-      rankQ[rg::kMaxCap];
+  std::vector<int> nxtP(cap), nxtQ(cap), rankP(cap), rankQ(cap);
   for (int k = 0; k < C; ++k) {
     const T kP = T(c[k].e) + c[k].t, kQ = T(c[k].f) + c[k].u;
     rankP[k] = rankQ[k] = 0;
@@ -117,46 +120,44 @@ void clip_row(const Inputs<T>& in, const rg::Out<T>& o, int row, long long sel,
   }
 
   // ---- 4. each crossing's outgoing arc -------------------------------------
-  int succ[32];
-  rg::ArcSums<T> as[rg::kMaxCap];
-  for (int k = 0; k < 32; ++k) succ[k] = k;
+  std::vector<int> succ(cap);
+  std::vector<rg::ArcSums<T>> as(cap);
+  for (int k = 0; k < cap; ++k) succ[k] = k;
   for (int k = 0; k < C; ++k) {
     const int n2 = c[k].follow_p ? nxtP[k] : nxtQ[k];
     succ[k] = n2;
     const rg::Cross<T>& d = c[n2];
     const rg::Arc<T> a =
         c[k].follow_p
-            ? rg::arc(px, py, np, preP, c[k].x, c[k].y, c[k].e, c[k].t, d.x,
-                      d.y, d.e, d.t)
-            : rg::arc(qx, qy, nq, preQ, c[k].x, c[k].y, c[k].f, c[k].u, d.x,
-                      d.y, d.f, d.u);
+            ? rg::arc(px.data(), py.data(), np, preP.data(), sP, c[k].x, c[k].y,
+                      c[k].e, c[k].t, d.x, d.y, d.e, d.t)
+            : rg::arc(qx.data(), qy.data(), nq, preQ.data(), sQ, c[k].x, c[k].y,
+                      c[k].f, c[k].u, d.x, d.y, d.f, d.u);
     as[k] = rg::arc_sums(c[k], a, d.x, d.y);
   }
 
-  // ---- 5. cycles: pointer doubling over 32 slots, least index labels -------
-  int lbl[32], s2[32], l_new[32], s_new[32];
-  for (int k = 0; k < 32; ++k) {
+  // ---- 5. cycles: pointer doubling over CAP slots, least index labels ------
+  std::vector<int> lbl(cap), s2(cap), l_new(cap), s_new(cap);
+  for (int k = 0; k < cap; ++k) {
     lbl[k] = k;
     s2[k] = succ[k];
   }
   const int rounds = rg::label_rounds(cap);
   for (int r = 0; r < rounds; ++r) {
-    for (int k = 0; k < 32; ++k) {
+    for (int k = 0; k < cap; ++k) {
       const int l2 = lbl[s2[k]];
       l_new[k] = l2 < lbl[k] ? l2 : lbl[k];
       s_new[k] = s2[s2[k]];
     }
-    for (int k = 0; k < 32; ++k) {
-      lbl[k] = l_new[k];
-      s2[k] = s_new[k];
-    }
+    lbl.swap(l_new);
+    s2.swap(s_new);
   }
 
   // ---- 6. regions: each sums its crossings' arcs in ascending order --------
   T cross_area = T(0);
-  rg::Region<T> reg[rg::kMaxCap];
-  T NX[rg::kMaxCap], NY[rg::kMaxCap], PL[rg::kMaxCap];
-  int PCn[rg::kMaxCap], QCn[rg::kMaxCap], M[rg::kMaxCap];
+  std::vector<rg::Region<T>> reg(cap);
+  std::vector<T> NX(cap), NY(cap), PL(cap);
+  std::vector<int> PCn(cap), QCn(cap), M(cap);
   for (int r = 0; r < cap; ++r) {
     T S = T(0), MX = T(0), MY = T(0);
     NX[r] = NY[r] = PL[r] = T(0);

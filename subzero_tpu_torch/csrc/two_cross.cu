@@ -58,6 +58,7 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxChunks = 4;  // rings of up to 128 vertices
 
 template <typename T> struct Vec2;
 template <> struct Vec2<float> { using type = float2; };
@@ -235,18 +236,254 @@ two_cross_kernel(const T* __restrict__ pverts, const int* __restrict__ pnv,
   }
 }
 
+// ---- rings wider than 32 vertices ------------------------------------------
+// Lane l holds vertices and edges l, l + 32, ... in K chunks (K = 2 up to
+// 64 vertices, 4 up to 128).  The arithmetic and every order of combination
+// are two_cross_kernel's: crossings folded in (i, j) order, i outer (chunk c
+// of a P edge's sweep holds Q edges 32c .. 32c + 31), ring sums in
+// ascending vertex order; so it too gives the shim's bits.
+
+// Lane (idx & 31)'s value of chunk idx >> 5, to every lane; idx uniform.
+template <typename T, int K>
+__device__ __forceinline__ T pick(const T (&a)[K], int idx) {
+  T v = a[0];
+#pragma unroll
+  for (int c = 1; c < K; ++c)
+    if ((idx >> 5) == c) v = a[c];
+  return __shfl_sync(kFull, v, idx & 31);
+}
+
+template <typename T, int K>
+struct WideRing {
+  T ax[K], ay[K], bx[K], by[K];
+  int n;
+};
+
+// Edge 32c + l runs from vertex 32c + l to the next one: lane l + 1 of the
+// same chunk, lane 0 of the next chunk for lane 31, vertex 0 at the ring's
+// end.
+template <typename T, int K>
+__device__ __forceinline__ WideRing<T, K> close_wide(const T (&x)[K],
+                                                     const T (&y)[K], int n,
+                                                     int lane) {
+  WideRing<T, K> r;
+  r.n = n;
+  const T x0 = __shfl_sync(kFull, x[0], 0), y0 = __shfl_sync(kFull, y[0], 0);
+  T upx[K], upy[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    upx[c] = __shfl_sync(kFull, x[c], (lane + 1) & 31);
+    upy[c] = __shfl_sync(kFull, y[c], (lane + 1) & 31);
+  }
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    r.ax[c] = x[c];
+    r.ay[c] = y[c];
+    const int idx = lane + 32 * c;
+    if (idx + 1 == n) {
+      r.bx[c] = x0;
+      r.by[c] = y0;
+    } else if (lane < 31) {
+      r.bx[c] = upx[c];
+      r.by[c] = upy[c];
+    } else {
+      r.bx[c] = c + 1 < K ? upx[c + 1 < K ? c + 1 : c] : x0;
+      r.by[c] = c + 1 < K ? upy[c + 1 < K ? c + 1 : c] : y0;
+    }
+  }
+  return r;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ bool point_in_wide(T px, T py,
+                                              const WideRing<T, K>& r,
+                                              int lane) {
+  int hits = 0;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const bool hit = lane + 32 * c < r.n &&
+                     sz::pip_hit(px, py, r.ax[c], r.ay[c], r.bx[c], r.by[c]);
+    hits += __popc(__ballot_sync(kFull, hit));
+  }
+  return (hits & 1) == 1;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ sz::Moments<T> chain_wide(
+    const WideRing<T, K>& r, int lane, int e_in, T t_in, T xin_x, T xin_y,
+    int e_out, T t_out, T xout_x, T xout_y) {
+  const sz::ChainPlan p = sz::chain_plan(r.n, e_in, t_in, e_out, t_out);
+  if (p.same) return sz::chain_same(xin_x, xin_y, xout_x, xout_y);
+  const T bin_x = pick(r.ax, p.b_in), bin_y = pick(r.ay, p.b_in);
+  const T aout_x = pick(r.ax, e_out), aout_y = pick(r.ay, e_out);
+  sz::Moments<T> run{T(0), T(0), T(0)};
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (32 * c < r.n) {  // uniform over the warp
+      const int idx = lane + 32 * c;
+      sz::Moments<T> term{T(0), T(0), T(0)};
+      if (idx < r.n && sz::chain_runs(p, idx))
+        term = sz::chain_term(r.ax[c], r.ay[c], r.bx[c], r.by[c]);
+      for (int k = 0; k < 32 && 32 * c + k < r.n; ++k) {
+        run.s += __shfl_sync(kFull, term.s, k);
+        run.mx += __shfl_sync(kFull, term.mx, k);
+        run.my += __shfl_sync(kFull, term.my, k);
+      }
+    }
+  }
+  return sz::chain_close(xin_x, xin_y, bin_x, bin_y, aout_x, aout_y, xout_x,
+                         xout_y, run);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+two_cross_wide_kernel(const T* __restrict__ pverts,
+                      const int* __restrict__ pnv, int N, int V,
+                      const T* __restrict__ qverts,
+                      const int* __restrict__ qnv, int NQ, int W,
+                      const long long* __restrict__ qi,
+                      const long long* __restrict__ qj,
+                      const T* __restrict__ shift,
+                      const T* __restrict__ perturb,
+                      const unsigned char* __restrict__ valid, int PC,
+                      T sliver, T* __restrict__ out, int* __restrict__ cnt,
+                      unsigned char* __restrict__ ok) {
+  using V2 = typename Vec2<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= PC) return;  // the whole warp leaves together
+
+  sz::TwoCrossOut<T> o;
+  const long long i = qi[row];
+  const long long j = qj[row];
+  const bool is_pair = valid[row] != 0;
+  const T pert = perturb[row];
+  const T shx = shift[2 * row], shy = shift[2 * row + 1];
+  if (!sz::row_live(is_pair, i, j, N, NQ)) {  // uniform over the warp
+    o = sz::invalid_row<T>();
+  } else {
+    const int np = sz::clamp_count(pnv[i], V);
+    const int nq = sz::clamp_count(qnv[j], W);
+    const T ox = sz::perturb_x(pert), oy = pert;
+    T px[K], py[K], qx[K], qy[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const int k = lane + 32 * c;
+      V2 pv = {T(0), T(0)}, qv = {T(0), T(0)};
+      if (k < V) pv = reinterpret_cast<const V2*>(pverts)[i * V + k];
+      if (k < W) qv = reinterpret_cast<const V2*>(qverts)[j * W + k];
+      px[c] = pv.x;
+      py[c] = pv.y;
+      qx[c] = sz::q_coord(qv.x, shx, ox);
+      qy[c] = sz::q_coord(qv.y, shy, oy);
+    }
+    const WideRing<T, K> P = close_wide<T, K>(px, py, np, lane);
+    const WideRing<T, K> Q = close_wide<T, K>(qx, qy, nq, lane);
+    T rx[K], ry[K], sx[K], sy[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      rx[c] = P.bx[c] - P.ax[c];
+      ry[c] = P.by[c] - P.ay[c];
+      sx[c] = Q.bx[c] - Q.ax[c];
+      sy[c] = Q.by[c] - Q.ay[c];
+    }
+
+    // ---- crossing sweep: step e tests P edge e against every Q edge -------
+    sz::CrossSums<T> c;  // the same in every lane
+    for (int e = 0; e < np; ++e) {
+      const T pax = pick(P.ax, e), pay = pick(P.ay, e);
+      const T erx = pick(rx, e), ery = pick(ry, e);
+#pragma unroll
+      for (int ch = 0; ch < K; ++ch) {
+        if (32 * ch < nq) {  // uniform over the warp
+          const sz::Crossing<T> x = sz::edge_crossing(
+              pax, pay, erx, ery, Q.ax[ch], Q.ay[ch], sx[ch], sy[ch]);
+          unsigned hits = __ballot_sync(kFull, lane + 32 * ch < nq && x.hit);
+          while (hits) {  // rare; ascending j
+            const int f = __ffs(hits) - 1;
+            hits &= hits - 1;
+            c.add(e, 32 * ch + f, __shfl_sync(kFull, x.t, f),
+                  __shfl_sync(kFull, x.u, f), __shfl_sync(kFull, x.denom, f),
+                  pax, pay, erx, ery);
+          }
+        }
+      }
+    }
+
+    // ---- ring areas (lanes past a ring's count add exact zeros) -----------
+    T shoeP = T(0), shoeQ = T(0);
+    const int nmax = np > nq ? np : nq;
+#pragma unroll
+    for (int ch = 0; ch < K; ++ch) {
+      const int k0 = lane + 32 * ch;
+      const T tp = k0 < np ? sz::shoelace_term(P.ax[ch], P.ay[ch], P.bx[ch],
+                                               P.by[ch])
+                           : T(0);
+      const T tq = k0 < nq ? sz::shoelace_term(Q.ax[ch], Q.ay[ch], Q.bx[ch],
+                                               Q.by[ch])
+                           : T(0);
+      for (int k = 0; k < 32 && 32 * ch + k < nmax; ++k) {
+        shoeP += __shfl_sync(kFull, tp, k);
+        shoeQ += __shfl_sync(kFull, tq, k);
+      }
+    }
+    const T areaP = sz::ring_area(shoeP);
+    const T areaQ = sz::ring_area(shoeQ);
+
+    // ---- one region: P chain enter -> exit, Q chain exit -> enter ---------
+    sz::Moments<T> chP{T(0), T(0), T(0)}, chQ{T(0), T(0), T(0)};
+    if (c.two_cross()) {
+      chP = chain_wide(P, lane, c.e_en, c.t_en, c.xen_x, c.xen_y, c.e_ex,
+                       c.t_ex, c.xex_x, c.xex_y);
+      chQ = chain_wide(Q, lane, c.f_ex, c.u_ex, c.xex_x, c.xex_y, c.f_en,
+                       c.u_en, c.xen_x, c.xen_y);
+    }
+
+    // ---- containment ------------------------------------------------------
+    bool p_in_q = false, q_in_p = false;
+    if (c.cnt == 0) {
+      p_in_q = point_in_wide(pick(P.ax, 0), pick(P.ay, 0), Q, lane);
+      q_in_p = point_in_wide(pick(Q.ax, 0), pick(Q.ay, 0), P, lane);
+    }
+    o = sz::finish(c, areaP, areaQ, chP, chQ, p_in_q, q_in_p, sliver);
+  }
+
+  T mine = T(0);
+#pragma unroll
+  for (int k = 0; k < sz::kOutFloats; ++k)
+    if (lane == k) mine = o.f[k];
+  if (lane < sz::kOutFloats)
+    out[static_cast<long long>(row) * sz::kOutFloats + lane] = mine;
+  if (lane == 0) {
+    cnt[row] = o.cnt;
+    ok[row] = o.ok ? 1 : 0;
+  }
+}
+
 template <typename T>
 int launch(const T* pverts, const int* pnv, int N, int V, const T* qverts,
            const int* qnv, int NQ, int W, const long long* qi,
            const long long* qj, const T* shift, const T* perturb,
            const unsigned char* valid, int PC, T sliver, T* out, int* cnt,
            unsigned char* ok, void* stream) {
+  const int width = V > W ? V : W;
+  if (width > 32 * kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
   if (PC > 0) {
     const int blocks = (PC + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    two_cross_kernel<T><<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift, perturb, valid,
-        PC, sliver, out, cnt, ok);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (width <= 32) {
+      two_cross_kernel<T><<<blocks, kThreads, 0, s>>>(
+          pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift, perturb,
+          valid, PC, sliver, out, cnt, ok);
+    } else if (width <= 64) {
+      two_cross_wide_kernel<T, 2><<<blocks, kThreads, 0, s>>>(
+          pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift, perturb,
+          valid, PC, sliver, out, cnt, ok);
+    } else {
+      two_cross_wide_kernel<T, kMaxChunks><<<blocks, kThreads, 0, s>>>(
+          pverts, pnv, N, V, qverts, qnv, NQ, W, qi, qj, shift, perturb,
+          valid, PC, sliver, out, cnt, ok);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

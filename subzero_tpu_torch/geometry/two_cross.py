@@ -38,7 +38,9 @@ NVCC_FLAGS = [
     "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-MAX_VERTS = 32  # widest ring the kernel takes: one vertex a lane
+# widest ring the kernels take: a lane holds vertices l, l + 32, ... (one
+# instantiation for rings of up to 32 vertices, wide ones above)
+MAX_VERTS = 128
 OUT_FLOATS = 10  # contain, area, centroid, chord_a, chord_b, p_norm of a row
 
 _lib = None
@@ -77,11 +79,11 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def build_library(name: str, sources, force: bool = False) -> dict:
+def build_library(name: str, sources, force: bool = False, defines=()) -> dict:
     """Compile ``sources[0]`` (the other sources are headers it includes)
     into ``_build/lib{name}.so`` if the library is missing or older than a
-    source.  Returns {"path", "built", "seconds", "log"}; raises on a failed
-    build."""
+    source, with the preprocessor ``defines`` (``-D...`` flags) added.
+    Returns {"path", "built", "seconds", "log"}; raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}.so"
     stale = force or not lib_path.exists() or any(
@@ -92,7 +94,7 @@ def build_library(name: str, sources, force: bool = False) -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(lib_path), "built": False, "seconds": 0.0, "log": log}
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources[0])]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(sources[0])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -186,7 +188,8 @@ def check_tensors(what: str, dev, specs) -> None:
             if x.dim() != 3 or x.shape[2] != 2:
                 raise ValueError(f"{name} must be a ring pool [n, V, 2]")
             if x.shape[1] > MAX_VERTS:
-                raise ValueError(f"ring width {x.shape[1]} > {MAX_VERTS}")
+                raise ValueError(f"ring width {x.shape[1]} > {MAX_VERTS} (MAX_VERTS, "
+                                 f"the kernels' widest ring): {name}")
             if x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
         elif x.shape != shape:

@@ -41,7 +41,6 @@ from ..geometry.clip import (
     ClipRegions,
     DEFAULT_CAP,
     first_true,
-    gather_rings,
     two_cross_dispatch,
 )
 from ..geometry.regions import intersect_regions_dispatch
@@ -726,7 +725,7 @@ class CollisionResult(NamedTuple):
 
 class NarrowBatch(NamedTuple):
     """What the narrow phase runs on: the ring pools and the candidate list.
-    No per-pair ring is materialised; ``ring_batch`` builds them on request."""
+    No per-pair ring is materialised."""
 
     pairs: PairArrays       # qi, qj, shift, valid of every candidate row
     p_verts: torch.Tensor   # [N, V, 2] P pool: the floes
@@ -742,13 +741,6 @@ class NarrowBatch(NamedTuple):
         """The arguments of ``two_cross_dispatch`` (clip.TWO_CROSS_ARGS)."""
         return (self.p_verts, self.p_n, self.q_verts, self.q_n, self.pairs.qi,
                 self.pairs.qj, self.pairs.shift, self.perturb, self.pairs.valid)
-
-
-def ring_batch(nb: NarrowBatch):
-    """The materialised rings of a NarrowBatch, (pv, pn, qv, qn, perturb) as
-    ``two_cross_pass`` takes them.  Off the main path: for checks that want
-    to see the rings the narrow phase gathers for itself."""
-    return (*gather_rings(*nb.two_cross_args()[:7]), nb.perturb)
 
 
 def narrow_phase_batch(floes: FloeState, domain: Domain, pair_cap: int,

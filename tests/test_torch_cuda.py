@@ -44,6 +44,8 @@ from subzero_tpu_torch.core import (
     make_model,
     make_ocean,
 )
+from subzero_tpu_torch.core.domain import make_topography
+from subzero_tpu_torch.core.floes import build_floes
 from subzero_tpu_torch.geometry import regions
 from subzero_tpu_torch.geometry import two_cross as tc_kernel
 from subzero_tpu_torch.geometry.clip import (
@@ -65,17 +67,27 @@ from subzero_tpu_torch.simulation import Simulation, run, run_scan
 
 from torch_port_helpers import (
     REPO,
+    WIDE_CLIP_CAP,
+    WIDE_PAIR_CAP,
+    WIDE_U,
+    WIDE_V,
+    WIDE_V_VEL,
     Ranks,
     assert_two_cross_close,
     build_pair_list,
     build_regions_shim,
     cuda_or_skip,
     free_port,
+    lattice_pairs,
     tt,
+    wide_field_coords,
 )
 
-CASES = [(np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32)]
-IDS = ["f32-V16", "f64-V16", "f32-V32", "f64-V32"]
+# rings up to 32 vertices take the kernel's first instantiation, wider ones
+# (up to MAX_VERTS = 128) its wide instantiations
+CASES = [(np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32),
+         (np.float32, 40), (np.float64, 40), (np.float32, 128)]
+IDS = ["f32-V16", "f64-V16", "f32-V32", "f64-V32", "f32-V40", "f64-V40", "f32-V128"]
 
 
 @pytest.mark.cuda
@@ -112,8 +124,8 @@ def test_cuda_kernel_rejects_what_it_cannot_take():
         tc_kernel.two_cross_cuda(*cpu)
     with pytest.raises(ValueError, match="CUDA"):  # one stray CPU tensor
         two_cross_dispatch(*_replace(args, perturb=cpu[7]))
-    wide = torch.zeros((8, 33, 2), dtype=p_verts.dtype, device=dev)
-    with pytest.raises(ValueError, match="ring width"):
+    wide = torch.zeros((8, tc_kernel.MAX_VERTS + 1, 2), dtype=p_verts.dtype, device=dev)
+    with pytest.raises(ValueError, match="ring width 129 > 128"):
         two_cross_dispatch(*_replace(args, q_verts=wide))
     with pytest.raises(TypeError, match="p_n"):
         two_cross_dispatch(*_replace(args, p_n=p_n.long()))
@@ -155,11 +167,11 @@ def test_cuda_kernel_zeroes_rows_with_an_index_outside_its_pool():
     assert_two_cross_close(type(got)(*(x[~bad] for x in got)), ref, True)
 
 
-def _slow_rows(dtype, dev, R=512):
-    """A pair list of star rings (V = 32) on the card and its slow
-    selection: the rows that cross but are no clean two-crossing contact,
-    the first R of them, and their count (more than R)."""
-    args = [a.to(dev) for a in tt(*build_pair_list(B=4096, seed=5, V=32, nmax=32,
+def _slow_rows(dtype, dev, R=512, V=32):
+    """A pair list of star rings (V = 32 unless said) on the card and its
+    slow selection: the rows that cross but are no clean two-crossing
+    contact, the first R of them, and their count (more than R)."""
+    args = [a.to(dev) for a in tt(*build_pair_list(B=4096, seed=5, V=V, nmax=V,
                                                     dtype=dtype))]
     tc = two_cross_dispatch(*args)
     slow = (tc.cnt > 0) & ~tc.ok
@@ -167,27 +179,33 @@ def _slow_rows(dtype, dev, R=512):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
-def test_cuda_slow_clip_kernel_matches_shim_and_plain(dtype, tmp_path):
-    """The slow clip's kernel (clip and retry: two launches) on 512 slow rows
-    of a 6 144-row pair list, at n_slow above 512 and cut to 7 and to 0:
-    equal to the g++ shim to the bit, rows past n_slow zeros, held against
-    the plain version on the card by ``regions.held_against_plain`` (the
-    comparison chip_smoke.py makes); two launches give the same bits."""
+@pytest.mark.parametrize("dtype,V", [(np.float32, 32), (np.float64, 32),
+                                     (np.float64, 128)],
+                         ids=["f32", "f64", "f64-V128"])
+def test_cuda_slow_clip_kernel_matches_shim_and_plain(dtype, V, tmp_path):
+    """The slow clip's kernel (clip and retry: one launch) on 512 slow rows
+    of a 6 144-row pair list (star rings of 32 vertices at CAP 16 and 32,
+    and of 128, the widest the kernel takes, at CAP 48 and 64, the most: in
+    f64 the largest scratch a warp has), at n_slow above 512 and cut to 7
+    and to 0: equal to the g++ shim to the bit, rows past n_slow zeros, held
+    against the plain version on the card by ``regions.held_against_plain``
+    (the comparison chip_smoke.py makes; at 128 vertices its limits of the
+    summed fields grow with the prefix sums' terms, 257 / 81); two launches
+    give the same bits."""
     dev = cuda_or_skip()
     shim = build_regions_shim(tmp_path)
-    args, ssel, n_slow = _slow_rows(dtype, dev)
+    args, ssel, n_slow = _slow_rows(dtype, dev, V=V)
     assert int(n_slow) > ssel.shape[0]
     for n in (None, 7, 0):
         sel, ns = (ssel, n_slow) if n is None else (
             torch.where(torch.arange(ssel.shape[0], device=dev) < n, ssel,
                         args[4].shape[0]), torch.tensor(n, device=dev))
-        for cap in (16, 32):
+        for cap in ((16, 32) if V == 32 else (48, regions.MAX_CAP)):
             what = f"n_slow {n} CAP {cap}: "
             before = regions.launch_count()
             got, gbad = regions.intersect_regions_dispatch(*args, sel, ns, cap, 16)
             torch.cuda.synchronize()
-            assert regions.launch_count() == before + 2
+            assert regions.launch_count() == before + regions.LAUNCHES_WITH_RETRY == before + 1
             host, hbad = regions.run_host_shim(shim, *(x.cpu() for x in args), sel.cpu(),
                                           ns.cpu(), cap, 16)
             assert torch.equal(gbad.cpu(), hbad), what + "parity_bad"
@@ -205,10 +223,10 @@ def test_cuda_slow_clip_kernel_matches_shim_and_plain(dtype, tmp_path):
 def test_cuda_slow_clip_kernel_rejects_what_it_cannot_take():
     dev = cuda_or_skip()
     args, ssel, n_slow = _slow_rows(np.float32, dev, R=64)
-    with pytest.raises(ValueError, match="CAP <= 32"):
-        regions.intersect_regions_dispatch(*args, ssel, n_slow, 33, 16)
-    wide = torch.zeros((4096, 33, 2), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="at most 32 vertices"):
+    with pytest.raises(ValueError, match="CAP <= 64"):
+        regions.intersect_regions_dispatch(*args, ssel, n_slow, 65, 16)
+    wide = torch.zeros((4096, 129, 2), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="at most 128 vertices"):
         regions.intersect_regions_dispatch(wide, *args[1:], ssel, n_slow, 16, 16)
     with pytest.raises(TypeError, match="n_slow"):
         regions.intersect_regions_dispatch(*args, ssel, n_slow.int(), 16, 16)
@@ -216,6 +234,120 @@ def test_cuda_slow_clip_kernel_rejects_what_it_cannot_take():
         regions.intersect_regions_dispatch(*args, ssel, n_slow.cpu(), 16, 16)
     with pytest.raises(TypeError, match="ssel"):
         regions.intersect_regions_dispatch(*args, ssel.int(), n_slow, 16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_cuda_slow_clip_retry_in_one_launch_matches_shim(dtype, tmp_path):
+    """The retry inside the clip's launch, on the lattice polygons (more
+    than 16 rows come out odd; the retry resolves some): equal to the g++
+    shim (which retries the first 16 odd rows after clipping them all) to
+    the bit, at n_slow = 64, 7 and 0; only the first 16 odd rows change;
+    launched again, and captured in a CUDA graph and replayed three times
+    into a buffer filled with garbage before each replay (the launch zeroes
+    the ticket in its own buffer), the same bits."""
+    dev = cuda_or_skip()
+    shim = build_regions_shim(tmp_path)
+    cpu, ssel_c, n_c = lattice_pairs(
+        dtype=torch.float64 if dtype == np.float64 else torch.float32,
+        perturb=(-13.5, -12.5) if dtype == np.float64 else (-8.5, -7.5))
+    args = [a.to(dev) for a in cpu]
+    ssel = ssel_c.to(dev)
+    for n in (64, 7, 0):
+        ns = torch.tensor(n, device=dev)
+        before = regions.launch_count()
+        got, gbad = regions.regions_cuda(*args, ssel, ns, 16, 16)
+        first, _ = regions.regions_cuda(*args, ssel, ns, 16, 0)
+        torch.cuda.synchronize()
+        assert regions.launch_count() == before + 2
+        host, hbad = regions.run_host_shim(shim, *cpu, ssel_c, torch.tensor(n), 16, 16)
+        assert torch.equal(gbad.cpu(), hbad), n
+        for f, x, y in zip(got._fields, got, host):
+            assert torch.equal(x.cpu(), y), (n, f)
+        changed = torch.stack([(a != b).reshape(a.shape[0], -1).any(1)
+                               for a, b in zip(first, got)]).any(0).cpu()
+        resolved = (gbad & ~got.overflow).cpu()
+        assert torch.equal(changed, resolved), n
+        if n == 64:
+            odd = gbad.cpu().nonzero().flatten()
+            assert odd.numel() > 16 and bool(resolved.any()), odd.numel()
+            assert not bool(resolved[odd[16]:].any())  # the first 16 only
+        again, _ = regions.regions_cuda(*args, ssel, ns, 16, 16)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), n
+    # captured once, replayed three times into the same buffer
+    ns = torch.tensor(64, device=dev)
+    want, _ = regions.regions_cuda(*args, ssel, ns, 16, 16)
+    buf = regions.alloc_output(64, 16, args[0].dtype, dev)
+    regions.launch_into(buf, *args, ssel, ns, 16, 16)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        regions.launch_into(buf, *args, ssel, ns, 16, 16)
+    for _ in range(3):
+        buf.fill_(0x5A)
+        graph.replay()
+        torch.cuda.synchronize()
+        got, _ = regions.result_of(buf, 64, 16, args[0].dtype)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _wide_sim(device, dtype=torch.float64):
+    """The wide field of tests/test_torch_wide_rings.py, built by the port:
+    a pool of 6 rings 40 wide (a comb of 40 vertices and a bar across its
+    teeth, 40 crossings; a bar across the teeth of a 40-vertex topography
+    comb; a rectangle over the bar's end) on a 2e5 m box (periodic N/S,
+    collision E, open W), no coupling, ``clip_cap`` 48."""
+    kw = dict(dtype=dtype, device=device)
+    grid = make_grid(-1e5, 1e5, -1e5, 1e5, Nx=20, Ny=20)
+    coords, topo_coords = wide_field_coords()
+    P, C, O = BoundaryKind.PERIODIC, BoundaryKind.COLLISION, BoundaryKind.OPEN
+    domain = make_domain(grid, P, P, C, O,
+                         topography=make_topography(topo_coords, V=WIDE_V, **kw), **kw)
+    fs = FloeSettings(min_floe_area=0.0, subfloe_point_generator=SubGridPointsGenerator(1e9))
+    floes = build_floes(coords, 0.25, 0.0, fs, np.random.default_rng(0), N=6,
+                        V=WIDE_V, P=WIDE_V, **kw)
+    floes = floes._replace(u=torch.tensor(WIDE_U, **kw), v=torch.tensor(WIDE_V_VEL, **kw))
+    return Simulation(
+        model=make_model(grid, make_ocean(grid, u=0.0, v=0.0, temp=0.0, **kw),
+                         make_atmos(grid, u=0.0, v=0.0, temp=-1.0, **kw), domain, floes),
+        consts=Constants(), dt=10, n_dt=0, floe_settings=fs,
+        coupling_settings=CouplingSettings(coupling_on=False),
+        collision_settings=CollisionSettings(), bins=None,
+        pair_cap=WIDE_PAIR_CAP, clip_cap=WIDE_CLIP_CAP,
+    )
+
+
+@pytest.mark.cuda
+def test_cuda_wide_rings_step_eager_and_replayed_match_cpu():
+    """Rings 40 wide and rows of 40 crossings at clip_cap 48 (what the JAX
+    package runs and the kernels took only up to 32 before): 10 f64 steps of
+    run_scan on the card, replayed from the step's graph and eager, equal
+    to the bit, and to the CPU's plain versions within 1e-6 of each field's
+    largest magnitude; both kernels launched once a step (B1's wide
+    instantiation, B2 at CAP 48), with no overflow."""
+    dev = cuda_or_skip()
+    n = 10
+    for k in (tc_kernel, regions):
+        k.reset_launch_count()
+    g, _ = run_scan(_wide_sim(dev), n)
+    torch.cuda.synchronize()
+    st = g.run_stats["graph"]
+    assert st["replays"] == n and g.n_overflow == 0
+    for name, k in (("two_cross", tc_kernel), ("regions", regions)):
+        assert k.launch_count() == n + st["warmup_launches"][name], name
+    for k in (tc_kernel, regions):
+        k.reset_launch_count()
+    e, _ = run_scan(_wide_sim(dev), n, _eager=True)
+    torch.cuda.synchronize()
+    assert tc_kernel.launch_count() == n and regions.launch_count() == n
+    for f, x, y in zip(g.model.floes._fields, g.model.floes, e.model.floes):
+        assert torch.equal(x, y), f
+    c, _ = run_scan(_wide_sim("cpu"), n)
+    for f in ("centroid", "u", "v", "xi", "collision_force", "collision_trq", "overarea"):
+        got = getattr(g.model.floes, f).cpu()
+        ref = getattr(c.model.floes, f)
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max()), f
+    assert float(c.model.floes.overarea[:4].min()) > 0  # every floe in contact
 
 
 def _small_sim(device, dtype=torch.float64):

@@ -12,8 +12,10 @@ disjoint pairs (no crossing), polygons on a coarse lattice against
 translated copies and each other (shared edges and vertices on edges, with
 odd crossing parity where the perturbation rounds away), and the slow rows
 of the packed fields of tests/test_torch_collisions_slow_path.py
-(``parity_retry`` and ``beyond_first_tier``).  Each at CAP 16 and 32, in f64
-and f32, at perturbation scales 1 and -41 (the retry's).
+(``parity_retry`` and ``beyond_first_tier``), and combs of up to 10 teeth
+(40 vertices) against bars in pools of width 40 (up to 40 crossings a row).
+Each at CAP 16 and 32 (the wide combs also at 48), in f64 and f32, at
+perturbation scales 1 and -41 (the retry's).
 
 Tolerances:
   * shim against the JAX package, f64: rtol 1e-9 with an absolute floor of
@@ -54,11 +56,14 @@ from torch_port_helpers import (
     assert_fields_close,
     build_batch,
     build_regions_shim,
+    lattice_pairs,
     port_state,
 )
 
 SUMMED = ("total_area", "area", "centroid", "p_norm", "p_len")
 CAPS = (16, 32)
+# the wide rings at CAP 48 as well: their rows keep up to 40 crossings
+CAPS_OF = {"wide_comb_bar": (16, 32, 48)}
 SCALES = (1.0, -41.0)
 
 
@@ -156,6 +161,23 @@ def over_cap(seed=1):
     return _pools(pairs, 20)
 
 
+def wide_comb_bar(seed=4):
+    """Combs of 8-10 teeth (32-40 vertices) against a bar across the teeth,
+    in pools of width 40: up to 40 crossings a row, so crossings past 31
+    (two a lane in the kernel) and past CAP 32, within CAP 48."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for n in range(12):
+        k = 8 + n % 3
+        w, h0, H = rng.uniform(0.5, 2), rng.uniform(0.5, 2), rng.uniform(3, 10)
+        a = rng.uniform(0.1, 0.45) * H
+        b = rng.uniform(0.55, 0.9) * H
+        L = (2 * k - 1) * w
+        pairs.append(_moved(rng, _comb(k, w, h0, H),
+                            _rect(-0.5 * w, L + 0.5 * w, h0 + a, h0 + b)))
+    return _pools(pairs, 40)
+
+
 def containment(seed=2):
     """Star rings with tiny stars inside them, inside big stars, and apart
     (tests/test_pallas_clip.py's batch): no proper crossing."""
@@ -174,25 +196,10 @@ SHARED_EDGE_PERTURB = {torch.float64: (-13.5, -12.5), torch.float32: (-8.5, -7.5
 def shared_edges(seed=3, dtype=torch.float64):
     """Polygons with vertices on a coarse lattice, against translated copies
     of themselves and against each other: collinear shared edges and
-    vertices on edges, with a perturbation in SHARED_EDGE_PERTURB[dtype]."""
-    rng = np.random.default_rng(seed)
-    pairs = []
-
-    def lattice_poly():
-        nv = int(rng.integers(3, 9))
-        th = np.sort(rng.choice(np.arange(16), nv, replace=False)) * 2 * np.pi / 16
-        r = rng.integers(2, 5, nv)
-        return np.round(np.stack([r * np.cos(th), r * np.sin(th)], 1))
-
-    for n in range(64):
-        P = lattice_poly()
-        Q = P + rng.integers(-2, 3, 2) if n % 2 else lattice_poly()
-        pairs.append((P, Q))
-    args = _pools(pairs, 16)
-    scale = np.abs(args[0].numpy()).max(axis=(1, 2))
-    args[7] = torch.from_numpy(scale * 10.0 ** rng.uniform(
-        *SHARED_EDGE_PERTURB[dtype], len(pairs)))
-    return args
+    vertices on edges, with a perturbation in SHARED_EDGE_PERTURB[dtype]
+    (torch_port_helpers.lattice_pairs), in f64."""
+    return list(lattice_pairs(K=64, seed=seed, dtype=torch.float64,
+                              perturb=SHARED_EDGE_PERTURB[dtype])[0])
 
 
 def _packed(case):
@@ -209,6 +216,7 @@ def _packed(case):
 
 INPUTS = {
     "comb_bar": comb_bar,
+    "wide_comb_bar": wide_comb_bar,
     "containment": containment,
     "shared_edges": shared_edges,
     "over_cap": over_cap,
@@ -287,7 +295,7 @@ def test_shim_against_jax_and_plain(name, shim):
     assert n > 0
     seen = {"regions": 0, "overflow": 0, "contained": 0}
     for dtype in (torch.float64, torch.float32):
-        for cap in CAPS:
+        for cap in CAPS_OF.get(name, CAPS):
             for scale in SCALES:
                 what = f"{name} {dtype} CAP {cap} scale {scale}: "
                 args = [x.to(dtype) if x.is_floating_point() else x for x in args64]
@@ -307,6 +315,8 @@ def test_shim_against_jax_and_plain(name, shim):
     # each input exercises what it is here for
     if name == "comb_bar":
         assert seen["regions"] >= 4 and seen["overflow"] > 0, seen
+    if name == "wide_comb_bar":  # 10 regions of 40 crossings at CAP 48
+        assert seen["regions"] == 10 and seen["overflow"] > 0, seen
     if name == "over_cap":
         assert seen["overflow"] > 0 and seen["regions"] >= 2, seen
     if name == "containment":
@@ -354,7 +364,7 @@ def test_shim_held_against_plain_in_f64(name, shim):
     in f64.  In f32 the latter is the f32 rounding, not zero."""
     args64, ssel, n_slow = _inputs(name)
     for dtype in (torch.float64, torch.float32):
-        for cap in CAPS:
+        for cap in CAPS_OF.get(name, CAPS):
             for scale in SCALES:
                 args = [x.to(dtype) if x.is_floating_point() else x for x in args64]
                 args[7] = args[7] * scale

@@ -183,25 +183,75 @@ def test_timestep_collisions_through_the_kernel_arithmetic(case, shim, monkeypat
 
 
 def test_the_wrapper_refuses_what_the_kernel_cannot_take():
-    """CAP above 32 and rings wider than 32 raise ValueError naming the
-    limit, before anything is launched (the checks read only shapes, so
-    they run here); CPU tensors raise: the kernel takes CUDA tensors."""
+    """CAP above 64 (MAX_CAP) and rings wider than 128 (MAX_VERTS) raise
+    ValueError naming the limit, before anything is launched (the checks
+    read only shapes, so they run here); CPU tensors raise: the kernel takes
+    CUDA tensors."""
     fl, dom, nb, tc, _ = _field("beyond_first_tier")
     PC = nb.pairs.qi.shape[0]
     slow = (tc.cnt > 0) & ~tc.ok
     base = [*nb.two_cross_args()[:8], first_true(slow, SLOW_CAP, PC), slow.sum(), 16, 16]
-    with pytest.raises(ValueError, match="CAP <= 32"):
-        regions.regions_cuda(*base[:10], 33, 16)
-    wide = torch.zeros((fl.capacity, 33, 2), dtype=torch.float64)
-    with pytest.raises(ValueError, match="at most 32 vertices"):
+    assert (regions.MAX_CAP, regions.MAX_VERTS) == (64, 128)
+    with pytest.raises(ValueError, match="CAP <= 64"):
+        regions.regions_cuda(*base[:10], 65, 16)
+    wide = torch.zeros((fl.capacity, 129, 2), dtype=torch.float64)
+    with pytest.raises(ValueError, match="at most 128 vertices"):
         regions.regions_cuda(wide, *base[1:])
-    with pytest.raises(ValueError, match="at most 32 vertices"):
-        regions.regions_cuda(*base[:2], torch.zeros((nb.q_verts.shape[0], 40, 2),
+    with pytest.raises(ValueError, match="at most 128 vertices"):
+        regions.regions_cuda(*base[:2], torch.zeros((nb.q_verts.shape[0], 129, 2),
                                                     dtype=torch.float64), *base[3:])
     with pytest.raises(ValueError, match="CUDA"):
         regions.regions_cuda(*base)
+    # at the limits the checks pass and only the device is refused
+    with pytest.raises(ValueError, match="CUDA"):
+        regions.regions_cuda(*base[:10], 64, 16)
     # the CPU goes to the plain version, at any CAP
-    got, _ = regions.intersect_regions_dispatch(*base[:10], 40, 16)
-    ref, _ = regions.slow_regions_plain(*base[:10], 40, 16)
+    got, _ = regions.intersect_regions_dispatch(*base[:10], 80, 16)
+    ref, _ = regions.slow_regions_plain(*base[:10], 80, 16)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert np.asarray(got.area).shape == (SLOW_CAP, 40)
+    assert np.asarray(got.area).shape == (SLOW_CAP, 80)
+
+
+def test_held_against_plain_limits_grow_past_the_read_width():
+    """``regions.held_against_plain`` keeps LIMIT_SAME and LIMIT_F64 as read
+    on rings of up to READ_VERTS (40) vertices, and on a wider row lets the
+    limits of the summed fields grow with its prefix sums' terms, (2n + 1) /
+    81: on the slow rows of star rings (f64), the plain version's own result
+    passes at 40 and 128 vertices; one row's total_area moved by 1.5 times
+    its limit is refused at 40 vertices, moved by half-way to the grown
+    limit passes at 128 and moved by 1.5 times the grown limit is refused."""
+    from subzero_tpu_torch.geometry.clip import two_cross_pairs
+
+    from torch_port_helpers import build_pair_list, tt
+
+    assert regions.READ_VERTS == 40
+    limit, eps = regions.LIMIT_SAME["total_area"], torch.finfo(torch.float64).eps
+    for V in (40, 128):
+        args = tt(*build_pair_list(B=128, seed=5, V=V, nmax=V, dtype=np.float64))[:8]
+        tc = two_cross_pairs(*args, torch.ones(args[4].shape[0], dtype=torch.bool))
+        slow = (tc.cnt > 0) & ~tc.ok
+        ssel, n_slow = first_true(slow, 16, args[4].shape[0]), slow.sum()
+        assert int(n_slow) >= 16
+        got, gbad = regions.slow_regions_plain(*args, ssel, n_slow, 32, 16)
+        held = regions.held_against_plain(got, gbad, *args, ssel, n_slow, 32, 16)
+        pv, pn, qv, qn, qi, qj, shift = args[:7]
+        n = torch.maximum(pn[qi[ssel]], qn[qj[ssel]])
+        row = int(n.argmax())
+        i, j = int(qi[ssel[row]]), int(qj[ssel[row]])
+        L = max(float(pv[i, :pn[i]].abs().max()),
+                float((qv[j, :qn[j]] + shift[ssel[row]]).abs().max()))
+        grow = max(1.0, (2 * int(n[row]) + 1) / 81)
+        assert held["limits_grown_by"] == grow
+        assert (grow == 1.0) == (V == 40)
+
+        def moved(k):
+            x = got.total_area.clone()
+            x[row] += k * limit * eps * L ** 2
+            return got._replace(total_area=x)
+
+        if V == 128:
+            regions.held_against_plain(moved((1 + grow) / 2), gbad, *args, ssel,
+                                       n_slow, 32, 16)
+        with pytest.raises(AssertionError, match="slow clip total_area"):
+            regions.held_against_plain(moved(1.5 * grow), gbad, *args, ssel,
+                                       n_slow, 32, 16)

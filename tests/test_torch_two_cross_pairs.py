@@ -9,7 +9,8 @@ the same numpy-seeded inputs, materialised for the reference with numpy.  The
 lists share rings between rows, shift some, and mark every 7th row invalid.
 The g++ build of the kernel's arithmetic (csrc/two_cross_host.cpp: the
 per-term functions of two_cross.cuh combined in the kernel's order) is held
-to the plain version on the same lists.  Tolerances: f64 rtol 1e-9; f32 those
+to the plain version on the same lists.  Rings of 16, 32 and 40 vertices
+(the kernel takes rings wider than 32 with an instantiation of its own).  Tolerances: f64 rtol 1e-9; f32 those
 of tests/test_pallas_clip.py; counts, flags and invalid rows exact.
 """
 
@@ -34,8 +35,11 @@ from torch_port_helpers import (
     zero_invalid_rows,
 )
 
-CASES = [(np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32)]
-IDS = ["f32-V16", "f64-V16", "f32-V32", "f64-V32"]
+# V = 40: rings wider than a warp, which the kernel takes with its wide
+# instantiation (two vertices a lane)
+CASES = [(np.float32, 16), (np.float64, 16), (np.float32, 32), (np.float64, 32),
+         (np.float32, 40), (np.float64, 40)]
+IDS = ["f32-V16", "f64-V16", "f32-V32", "f64-V32", "f32-V40", "f64-V40"]
 
 
 def _assert_invalid_rows_zero(res, valid):

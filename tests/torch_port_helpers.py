@@ -102,6 +102,87 @@ def assert_two_cross_close(got, ref, f64, what=""):
                                    err_msg=what + f)
 
 
+# ---- a field of rings wider than 32 vertices (tests/test_torch_wide_rings.py,
+# and on the card tests/test_torch_cuda.py) ---------------------------------
+
+WIDE_V = 40          # ring width of the pool and the topography
+WIDE_CLIP_CAP = 48   # crossings a slow row keeps: the combs' rows cross 40 times
+WIDE_PAIR_CAP = 64
+
+
+def comb(x0, y0, k, tooth, gap, base, height):
+    """A CCW comb of k teeth (width ``tooth``, ``gap`` apart, ``height``
+    above a base of height ``base``) from (x0, y0): 4k vertices."""
+    L = k * tooth + (k - 1) * gap
+    pts = [(x0, y0), (x0 + L, y0)]
+    for m in range(k - 1, -1, -1):
+        xl = x0 + m * (tooth + gap)
+        pts += [(xl + tooth, y0 + base + height), (xl, y0 + base + height)]
+        if m > 0:
+            pts += [(xl, y0 + base), (xl - gap, y0 + base)]
+    return [list(p) for p in pts]
+
+
+def trapezoid(x0, x1, y0, y1, h0, h1):
+    """Bottom edge (x0, y0) -> (x1, y1), thickness h0 at x0 and h1 at x1.
+    Across a comb's tooth it gives a region whose two P-chain segments
+    differ in length, so the region's normal does not cancel to roundoff
+    (as a bar of constant thickness across a tooth's parallel edges would:
+    its force direction would be noise in either package)."""
+    return [[x0, y0], [x1, y1], [x1, y1 + h1], [x0, y0 + h0]]
+
+
+def wide_field_coords():
+    """(floe rings, topography rings) of the wide field on the 2e5 m box
+    centred on 0: a comb of 10 teeth (40 vertices) with a bar floe across
+    its teeth (40 crossings, 10 regions), a bar floe across the teeth of a
+    40-vertex topography comb, and a small rectangle over the first bar's
+    end (a clean two-crossing contact)."""
+    floes = [comb(-6e4, 1e4, 10, 8e2, 3e3, 3e3, 2e4),
+             trapezoid(-6.2e4, -1.8e4, 1.9e4, 1.8e4, 2e3, 6e3),
+             trapezoid(0.8e4, 5.2e4, -7.9e4, -8.0e4, 2e3, 6e3),
+             [[-2.0e4, 2.1e4], [-1.5e4, 2.1e4], [-1.5e4, 2.6e4], [-2.0e4, 2.6e4]]]
+    return floes, [comb(1e4, -9e4, 10, 8e2, 3e3, 3e3, 2e4)]
+
+
+# velocities of the wide field's pool of 6 (four floes, two empty slots)
+WIDE_U = [0.1, -0.1, 0.0, 0.2, 0.0, 0.0]
+WIDE_V_VEL = [0.0, 0.05, 0.1, -0.1, 0.0, 0.0]
+
+
+def lattice_pairs(K=64, seed=3, dtype=torch.float64, perturb=(-13.5, -12.5)):
+    """Polygons with vertices on a coarse lattice against translated copies
+    of themselves and against each other (shared edges, vertices on edges),
+    as a slow batch (pools of width 16, every row slow: ssel 0..K-1), with a
+    perturbation of 10^``perturb`` of each row's coordinates, where the
+    crossing parity of some rows comes out odd and the retry resolves some.
+    Returns (the 8 pool and pair-list tensors, ssel, n_slow) on the CPU."""
+    rng = np.random.default_rng(seed)
+    V = 16
+    pv, qv = np.zeros((K, V, 2)), np.zeros((K, V, 2))
+    pn, qn = np.zeros(K, np.int32), np.zeros(K, np.int32)
+
+    def lattice_poly():
+        nv = int(rng.integers(3, 9))
+        th = np.sort(rng.choice(np.arange(16), nv, replace=False)) * 2 * np.pi / 16
+        r = rng.integers(2, 5, nv)
+        return np.round(np.stack([r * np.cos(th), r * np.sin(th)], 1))
+
+    for k in range(K):
+        P = lattice_poly()
+        Q = P + rng.integers(-2, 3, 2) if k % 2 else lattice_poly()
+        for v, n, ring in ((pv, pn, P), (qv, qn, Q)):
+            v[k, :len(ring)] = ring
+            v[k, len(ring):] = ring[-1]
+            n[k] = len(ring)
+    pert = np.abs(pv).max(axis=(1, 2)) * 10.0 ** rng.uniform(*perturb, K)
+    idx = torch.arange(K)
+    args = (torch.tensor(pv, dtype=dtype), torch.tensor(pn), torch.tensor(qv, dtype=dtype),
+            torch.tensor(qn), idx, idx.clone(), torch.zeros((K, 2), dtype=dtype),
+            torch.tensor(pert, dtype=dtype))
+    return args, idx.clone(), torch.tensor(K)
+
+
 def build_pair_list(B=256, seed=0, V=16, nmax=16, dtype=np.float32):
     """Ring pools and a candidate pair list as the narrow phase takes them
     (clip.TWO_CROSS_ARGS, numpy): the rings of ``build_batch`` as a P pool
