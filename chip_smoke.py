@@ -1988,7 +1988,7 @@ def phase_graph(dev, report):
     bitwise in f32; host synchronisations between run_scan's first and last
     step (none) and a life-cycle run's by source line; host launch calls
     and device kernels a step by torch.profiler."""
-    from subzero_tpu_torch import simulation
+    from subzero_tpu_torch import tracing
     from subzero_tpu_torch.simulation import run, run_scan
 
     out = {}
@@ -2007,14 +2007,14 @@ def phase_graph(dev, report):
             f"{name}'s programs, one replay each"] = out[name]["slow_clip_runs_per_replay"]
         if name == "shear_flow_500":
             # between run_scan's first and last step nothing is read: the one
-            # read is n_overflow's, after the last step
-            end_line = next(i for i, ln in enumerate(
-                open(simulation.__file__).read().splitlines(), 1)
-                if "sim.n_overflow = int(n_over)" in ln)
-            end_src = f"{os.path.relpath(simulation.__file__)}:{end_line}"
+            # read is the marks' buffer's (n_overflow with the counters),
+            # after the last step, in tracing.py, whose only read of the
+            # card is that one (Marks.read)
+            end_file = os.path.relpath(tracing.__file__)
             _, syncs, sources = count_host_syncs(
                 lambda: replay_from(sim, GRAPH_SYNC_STEPS), top=None)
-            within = syncs - sources.get(end_src, 0)
+            within = syncs - sum(n for src, n in sources.items()
+                                 if src.rsplit(":", 1)[0] == end_file)
             if within != 0 or syncs > 1:
                 raise AssertionError(f"run_scan read the device {within} times between "
                                      f"its first and last step: {sources}")
@@ -3835,16 +3835,20 @@ def main(argv=None) -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from subzero_tpu_torch import tracing
     from subzero_tpu_torch.geometry import regions, two_cross
 
     # one nvcc a kernel library, all at once (the slow clip's clocked
-    # build only where the regions phase reads it)
-    with ThreadPoolExecutor(3) as pool:
+    # build only where the regions phase reads it; the layer marks' library
+    # here too, so that no capture builds it)
+    with ThreadPoolExecutor(4) as pool:
+        marks_build = pool.submit(tracing.build, force=True)
         builds = [pool.submit(k.build, force=True) for k in (two_cross, regions)]
         clocked = (pool.submit(regions.build_clocked, force=True)
                    if {"regions", "bench"} & set(phases) else None)
         info, info_b2 = (b.result() for b in builds)
         info_clock = clocked.result() if clocked else None
+        info_marks = marks_build.result()
 
     def ptxas_of(build):
         return [ln.strip() for ln in build["log"].splitlines()
@@ -3862,6 +3866,7 @@ def main(argv=None) -> int:
                     "ptxas": ptxas_of(info_b2)},
          slow_clip_clocked=info_clock and {"seconds": info_clock["seconds"],
                                            "ptxas": ptxas_of(info_clock)},
+         layer_marks={"seconds": info_marks["seconds"], "ptxas": ptxas_of(info_marks)},
          native_clip={"served_by": "native" if native.available() else "python",
                       "library": str(native.LIB_PATH),
                       "seconds": time.perf_counter() - t0})

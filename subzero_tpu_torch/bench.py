@@ -21,8 +21,8 @@ state that replay them, each ending in a device synchronisation; the
 fastest counts (as bench.py's timed runs reuse the scan its warm-up
 compiled).  The capture's seconds are reported apart (``capture_s``).  ``pairs_per_s`` is the
 broad phase's valid candidate pairs at step 0 times steps per second, as
-``bench.py`` counts it.  shear_flow_500 also runs with coupling off and with
-collisions off, for bench.py's split of the step.
+``bench.py`` counts it.  The step's split by layer is the StepGraph's layer
+marks' (``tracing``), in each run's ``run_stats["graph"]``.
 
     python -m subzero_tpu_torch.bench
 
@@ -170,20 +170,6 @@ def measure(sim, n_steps=50, reps=REPS, _eager=False):
     }
 
 
-def phase_split(full: dict, cfg: dict, device=None) -> dict:
-    """bench.py's split of the step: the same configuration measured with
-    coupling off and with collisions off."""
-    def without(**off):
-        return measure(build_sim(cfg["n"], cfg["L"], DX, bins=cfg["bins"],
-                                 device=device, **off), cfg["n_steps"])["step_ms"]
-
-    no_cpl, no_col = without(coupling=False), without(collisions=False)
-    col_ms = round(full["step_ms"] - no_col, 4)
-    cpl_ms = round(full["step_ms"] - no_cpl, 4)
-    return {"collisions": col_ms, "coupling_amortized": cpl_ms,
-            "integrate_remove_other": round(full["step_ms"] - col_ms - cpl_ms, 4)}
-
-
 def nvidia_smi() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     out = subprocess.run(
@@ -220,8 +206,6 @@ def main() -> dict:
         sim = build_sim(cfg["n"], cfg["L"], DX, bins=cfg["bins"], device=device)
         r = measure(sim, cfg["n_steps"])
         r["pairs_per_s"] = round(r["pairs_per_s"], 1)
-        if name == "shear_flow_500":
-            r["phases_ms"] = phase_split(r, cfg, device)
         detail[name] = r
     line = result_line(detail)
     print(json.dumps(line), flush=True)

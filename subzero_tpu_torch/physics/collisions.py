@@ -875,6 +875,7 @@ def timestep_collisions(
     bins: tuple | None = None,
     owned_rows: int | None = None,
     with_debug: bool = False,
+    mark=None,
 ) -> CollisionResult:
     """timestep_collisions! (collisions.jl:734-864), batched over the pool.
 
@@ -888,7 +889,10 @@ def timestep_collisions(
     ``pairs_overflow``, ``n_candidates``, ``compact_overflow`` (always False:
     the compaction branch is not ported), ``n_slow``, ``slow_cap``,
     ``n_parity_bad`` (before the retry) and ``clip_overflow`` (after it).
-    Returns ``(result, dbg)`` then."""
+    Returns ``(result, dbg)`` then.  ``mark``: the step's layer marks
+    (``tracing.Marks``), called after the broad phase (with the candidate
+    rows to count), after the narrow phase and the slow clip (with the
+    slow rows) and after the force law; None marks nothing."""
     N = floes.capacity
     NR = N if owned_rows is None else owned_rows
     V = floes.max_verts
@@ -920,6 +924,8 @@ def timestep_collisions(
     j0 = pairs.qj
     pvalid0 = pairs.valid
     R0 = NR * row_cap0
+    if mark is not None:
+        mark(1, pairs=pvalid0)
     # the narrow phase zeroes the rows that are not candidates (cnt 0, ok
     # False, contain 0), so nothing here masks them again
     tc = two_cross_dispatch(*nb.two_cross_args())
@@ -931,6 +937,8 @@ def timestep_collisions(
     ssel, svalid, ssafe, sregions = slow.sel, slow.valid, slow.safe, slow.regions
     i1, j1, shift1, n_slow = slow.i, slow.j, slow.shift, slow.n_slow
     slow_cap = svalid.shape[0]
+    if mark is not None:
+        mark(2, slow=n_slow, slow_cap=slow_cap)
     slow_total = torch.where(svalid, sregions.total_area, 0.0)
 
     # total intersection area for every candidate pair (containment included);
@@ -983,6 +991,8 @@ def timestep_collisions(
     s_force, s_fp, s_rec = _region_forces(
         consts, dt, vals, sides1, shift1, sregions, pair_on1,
     )
+    if mark is not None:
+        mark(3)
     f_acc = _accumulate_contacts(
         N, i0, j0, sides0, pvalid0, is_ff_pair0, pairs.shift,
         f_force, f_fp, f_rec, row_cap=row_cap0, n_rows=NR,

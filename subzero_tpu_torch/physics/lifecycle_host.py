@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..geometry import host_clip
 from ..geometry.host_clip import poly_area_np, poly_centroid_np
 from ..core.domain import Domain, BoundaryKind, NORTH, SOUTH, EAST, WEST
@@ -52,9 +53,15 @@ from ..settings import (
 # ---------------------------------------------------------------------------
 
 class HostFloes:
-    """Mutable numpy mirror of a FloeState pool."""
+    """Mutable numpy mirror of a FloeState pool.  Its build from the
+    device's pool is the host span ``pool.pull``, and ``to_state``, the
+    copy back, is ``pool.push`` (``tracing.span``)."""
 
     def __init__(self, floes: FloeState):
+        with tracing.span("pool.pull"):
+            self._pull(floes)
+
+    def _pull(self, floes: FloeState) -> None:
         self.device = floes.verts.device
         items = floes._asdict()
         self.torch_dtypes = {k: v.dtype for k, v in items.items()}
@@ -89,6 +96,10 @@ class HostFloes:
 
     def to_state(self) -> FloeState:
         """The pool back on its device in its dtypes, one transfer a dtype."""
+        with tracing.span("pool.push"):
+            return self._push()
+
+    def _push(self) -> FloeState:
         out = {}
         for dtype in dict.fromkeys(self.torch_dtypes.values()):
             keys = [k for k, d in self.torch_dtypes.items() if d == dtype]

@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from . import tracing as _tracing
 from .constants import Constants
 from .core.domain import Domain
 from .core.model import Model
@@ -153,7 +154,7 @@ def couples(cps: CouplingSettings, tstep: int) -> bool:
     return bool(cps.coupling_on and tstep % cps.dt == 0)
 
 
-def build_step_bodies(sim: Simulation) -> tuple[Callable, Callable]:
+def build_step_bodies(sim: Simulation, mark=None) -> tuple[Callable, Callable]:
     """The step's two halves as the device runs them; nothing in them reads
     the device, so ``step_graph.StepGraph`` captures them as they are:
 
@@ -164,7 +165,10 @@ def build_step_bodies(sim: Simulation) -> tuple[Callable, Callable]:
 
     ``couple``: whether this step runs the coupling (``couples``).  They
     hold what they read of ``sim``, not ``sim`` itself, so a Simulation and
-    the graphs it keeps are freed without the cycle collector."""
+    the graphs it keeps are freed without the cycle collector.  ``mark``:
+    the step's layer marks (``tracing.Marks``; a StepGraph passes its
+    own), called inside ``timestep_collisions``, at the end of ``collide``
+    (mark 4) and after the coupling (mark 5); None marks nothing."""
     grid = sim.model.grid
     atmos = sim.model.atmos
     consts = sim.consts
@@ -184,12 +188,15 @@ def build_step_bodies(sim: Simulation) -> tuple[Callable, Callable]:
         if cls.collisions_on:
             res = _collisions.timestep_collisions(
                 floes, domain, consts, dt, cls, pair_cap, clip_cap, bins,
+                mark=mark,
             )
             floes = res.floes
             stress_instant = res.stress_instant
             overflow = overflow | res.overflow
         # moving boundaries advance after collisions (collisions.jl:797)
         domain = domain.update_boundaries(dt)
+        if mark is not None:
+            mark(4)
         return floes, domain, stress_instant, overflow
 
     def finish(floes, ocean, domain: Domain, stress_instant, couple: bool):
@@ -201,6 +208,8 @@ def build_step_bodies(sim: Simulation) -> tuple[Callable, Callable]:
                 cell_cap,
             )
             overflow = overflow | cp_overflow
+        if mark is not None:
+            mark(5)
         # --- integrate (simulation.jl:165-170) ----------------------------
         floes = _update_floe.timestep_floe_properties(floes, dt, fs, stress_instant)
         floes = _update_floe.wrap_periodic(floes, domain)
@@ -279,7 +288,18 @@ def run_scan(sim: Simulation, n_steps: int, start_tstep: int = 0,
     model advanced.  Steps whose pair/crossing/window capacity overflowed
     are counted on the device and read once at the end, reported as one
     warning like the reference; the count is ``sim.n_overflow``, and
-    ``sim.run_stats["graph"]`` holds the graph's counters for this run."""
+    ``sim.run_stats["graph"]`` holds the graph's counters for this run (its
+    layer marks' seconds and counters among them, read with the overflow
+    count) and ``sim.run_stats["spans"]`` the run's host spans
+    (``tracing.span``: ``run_scan``, ``run_scan.read``)."""
+    spans = _tracing.new_spans()
+    with _tracing.collecting(spans), _tracing.span("run_scan"):
+        out = _run_scan(sim, n_steps, start_tstep, collect, _eager)
+    sim.run_stats["spans"] = spans
+    return out
+
+
+def _run_scan(sim, n_steps, start_tstep, collect, _eager):
     floes, ocean, domain = sim.model.floes, sim.model.ocean, sim.model.domain
     outs = []
     if _eager:
@@ -293,16 +313,17 @@ def run_scan(sim: Simulation, n_steps: int, start_tstep: int = 0,
         stats = None
     else:
         graph = sim.step_graph()
-        stats0 = dict(graph.stats)
+        stats0 = graph.snapshot()
         tsteps = range(start_tstep, start_tstep + n_steps)
         graph.prepare({graph.step_prog(t) for t in tsteps})
-        graph.n_over.zero_()
+        graph.marks.begin_call()
         for tstep in tsteps:
             graph.step(tstep)
             if collect is not None:
                 outs.append(graph.own(collect(graph.floes, graph.ocean)))
-        n_over = graph.n_over
         floes, ocean, domain = graph.state()
+        with _tracing.span("run_scan.read"):
+            _, n_over = graph.marks.read()
         stats = graph.stats_since(stats0)
     sim.n_overflow = int(n_over)
     if sim.n_overflow:
@@ -319,27 +340,32 @@ def run_scan(sim: Simulation, n_steps: int, start_tstep: int = 0,
 HOST_PASSES = ("ridge_raft", "fracture", "weld", "smooth", "fuse")
 
 
-class _HostPass:
-    """Times one host pass into ``state["seconds"][name]`` and counts the
-    launches it made of each hand-written kernel (``step_graph.KERNELS``)
-    into ``state["launches"][kernel][name]``.  A pass starts by pulling the
+class _HostPass(_tracing.Span):
+    """A host span (``tracing.Span``, its range ``host_pass.<name>``) that
+    times one host pass into ``state["seconds"][name]``, counts it into
+    ``state["passes"][name]`` and counts the launches it made of each
+    hand-written kernel (``step_graph.KERNELS``) into
+    ``state["launches"][kernel][name]``.  A pass starts by pulling the
     pool, so the time the device still needed for the steps queued before
     it is counted to the pass."""
 
     def __init__(self, state, name):
-        self.state, self.name = state, name
+        super().__init__(name, state)
+        self.state = state
+
+    def range_name(self) -> str:
+        return f"host_pass.{self.name}"
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
         self.l0 = {k: m.launch_count() for k, m in KERNELS.items()}
+        return super().__enter__()
 
-    def __exit__(self, *exc):
+    def record(self, seconds: float) -> None:
         st = self.state
-        st["seconds"][self.name] += time.perf_counter() - self.t0
+        st["seconds"][self.name] += seconds
         for k, m in KERNELS.items():
             st["launches"][k][self.name] += m.launch_count() - self.l0[k]
         st["passes"][self.name] += 1
-        return False
 
 
 def _new_run_state(max_floe_id: int) -> dict:
@@ -491,8 +517,19 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None,
     copied back into the graph's buffers.  On the CPU the same loop calls
     the step directly; ``_eager`` does so on the card too (the reference
     the graph is held to).  ``sim.run_stats`` reports steps, segments, and
-    seconds and kernel launches by host pass, and the graph's counters for
-    this run."""
+    seconds and kernel launches by host pass, the graph's counters for
+    this run (its layer marks' among them: the step's one read brings them
+    with the flags) and the run's host spans (``spans``: ``run``,
+    ``run.read``, ``run.callback``, ``run.writers``, ``pool.pull``,
+    ``pool.push``)."""
+    spans = _tracing.new_spans()
+    with _tracing.collecting(spans), _tracing.span("run"):
+        out = _run(sim, start_tstep, callback, collect, _eager)
+    sim.run_stats["spans"] = spans
+    return out
+
+
+def _run(sim, start_tstep, callback, collect, _eager):
     from .io.logger import SimulationLogger
 
     logger = SimulationLogger(sim.name)
@@ -501,7 +538,8 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None,
         sim.interleave_ridge_raft and rr.ridge_raft_on and rr.dt > 0
     )
     graph = StepGraph(sim, _eager=True) if _eager else sim.step_graph()
-    stats0 = dict(graph.stats)
+    stats0 = graph.snapshot()
+    graph.marks.begin_call()
     tstep = start_tstep
     n_overflow = 0
     collected = []
@@ -578,7 +616,9 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None,
             if collect is not None:
                 collected.append(graph.own(collect(graph.floes, graph.ocean)))
             # the step's one read by the loop: fuse flag and overflow flag
-            fuse, over = graph.flags.tolist()
+            # (and the marks' counters with them)
+            with _tracing.span("run.read"):
+                (fuse, over), _ = graph.marks.read()
             seg_len += 1
             seg_nov += int(over)
             tstep += 1
@@ -598,13 +638,15 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None,
         if callback is not None or sim.writers is not None:
             floes, ocean, domain = graph.state()
         if callback is not None:
-            callback(tstep, floes, ocean, domain)
+            with _tracing.span("run.callback"):
+                callback(tstep, floes, ocean, domain)
         if sim.writers is not None:
             sim.model = sim.model.replace(floes=floes, ocean=ocean, domain=domain)
-            sim.writers.write_data(
-                sim, tstep, floes, ocean, domain,
-                rng_state=rng.bit_generator.state,
-            )
+            with _tracing.span("run.writers"):
+                sim.writers.write_data(
+                    sim, tstep, floes, ocean, domain,
+                    rng_state=rng.bit_generator.state,
+                )
         rr_now = rr_mid_step and tstep % rr.dt == 0 and tstep > 0
         if rr_now:
             # mid-step placement: collisions -> ridge/raft ->
@@ -619,7 +661,9 @@ def run(sim: Simulation, start_tstep: int = 0, callback=None, collect=None,
             graph.step(tstep)
         if collect is not None:
             collected.append(graph.own(collect(graph.floes, graph.ocean)))
-        if bool(graph.flags[1]):
+        with _tracing.span("run.read"):
+            (_, over), _ = graph.marks.read()
+        if over:
             n_overflow += 1
             logger.warn(
                 "pair/crossing capacity exceeded; contact forces may be "

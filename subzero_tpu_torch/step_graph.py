@@ -32,6 +32,15 @@ by the graph (``add_replayed``, the launches the program captured;
 ``chip_smoke.py``'s ``graph`` phase holds that count against the kernels'
 runs on the card, by torch.profiler).
 
+The step's bodies carry the graph's layer marks (``tracing.Marks``): a
+mark opens each program and one closes each step, and the bodies mark the
+layers between, inside the capture.  Their buffer holds the step's flags
+and overflow count too, so ``marks.read``, the one host read of a call
+(``run_scan``) or of a step (``run``), brings every counter with it;
+``stats`` gives what it last read (seconds by layer, steps marked, candidate
+pairs and slow rows, cumulative; the counters' maxima since the call's
+``marks.begin_call``) and the graph's own host spans.
+
 A Simulation keeps its StepGraph (``Simulation.step_graph``), so a later
 ``run_scan`` or ``run`` replays the captures of an earlier one; a state of
 another shape is captured again, and other settings make a new StepGraph.
@@ -51,6 +60,7 @@ from typing import Callable
 
 import torch
 
+from . import tracing
 from .core.fields import OceanState
 from .core.floes import FloeState
 from .geometry import regions as _regions
@@ -105,9 +115,12 @@ class StepGraph:
     module's docstring).  ``load`` copies a state in, ``replay`` runs one
     program, ``state`` copies the state out.  ``flags`` holds the last
     step's (fuse marked, overflow) and ``n_over`` counts overflowed steps,
-    both on the device.  ``stats`` counts captures, recaptures (after a
-    state of another shape was loaded), their seconds, the warm-ups' kernel
-    launches and the replays; ``capture_pool_bytes`` says by how much each
+    both on the device, in the buffer of the step's marks (``marks``),
+    which ``marks.read`` brings to the host.  ``stats`` counts captures,
+    recaptures (after a state of another shape was loaded), their seconds,
+    the warm-ups' kernel launches and the replays, and gives what
+    ``marks.read`` last read and the graph's host spans (``spans``:
+    ``step_graph.prepare``, ``.load``, ``.state``); ``capture_pool_bytes`` says by how much each
     program's capture grew the card's reserved memory (the programs share
     one pool, so a later capture reuses what an earlier one freed).  It
     holds what it reads of ``sim``, never ``sim``, so that ``sim`` can keep
@@ -118,13 +131,15 @@ class StepGraph:
 
         m = sim.model
         self._settings = _settings(sim)
-        self.collide, self.finish = build_step_bodies(sim)
+        self.device = m.floes.verts.device
+        self.marks = tracing.Marks(self.device)
+        self.collide, self.finish = build_step_bodies(sim, mark=self.marks)
         cps = sim.coupling_settings
         self.couples: Callable[[int], bool] = lambda t: couples(cps, t)
-        self.device = m.floes.verts.device
         self.capture = self.device.type == "cuda" and not _eager
-        self.stats = {"captures": 0, "recaptures": 0, "capture_seconds": 0.0,
-                      "warmup_launches": dict.fromkeys(KERNELS, 0), "replays": 0}
+        self._stats = {"captures": 0, "recaptures": 0, "capture_seconds": 0.0,
+                       "warmup_launches": dict.fromkeys(KERNELS, 0), "replays": 0,
+                       "spans": tracing.new_spans()}
         self._graphs = {}
         self._captured_launches = {}
         self.capture_pool_bytes = {}
@@ -137,11 +152,21 @@ class StepGraph:
         (objs, vals), (objs2, vals2) = self._settings, _settings(sim)
         return all(a is b for a, b in zip(objs, objs2)) and vals == vals2
 
+    @property
+    def stats(self) -> dict:
+        """The counters (see the class's docstring), with the marks' as
+        their last ``marks.read`` brought them."""
+        return {**self._stats, **self.marks.stats()}
+
+    def snapshot(self) -> dict:
+        """A copy of ``stats`` that later runs do not change."""
+        return _copy(self.stats)
+
     def stats_since(self, before: dict) -> dict:
-        """``stats`` less an earlier copy of them: one run's counters (the
-        warm-ups' launches by kernel)."""
-        return {k: ({kk: vv - before[k][kk] for kk, vv in v.items()}
-                    if isinstance(v, dict) else v - before[k])
+        """``stats`` less an earlier ``snapshot``: one run's counters (the
+        warm-ups' launches by kernel, seconds by layer and by span), with
+        the marks' ``GAUGES`` as they are."""
+        return {k: v if k in tracing.GAUGES else _less(v, before.get(k))
                 for k, v in self.stats.items()}
 
     # ------------------------------------------------------------------
@@ -156,9 +181,8 @@ class StepGraph:
         dev = self.device
         self.stress_instant = torch.zeros_like(floes.stress_accum)
         self.ov1 = torch.zeros((), dtype=torch.bool, device=dev)
-        self.flags = torch.zeros(2, dtype=torch.bool, device=dev)
-        self.n_over = torch.zeros((), dtype=torch.int64, device=dev)
-        for t in (self.stress_instant, self.ov1, self.flags, self.n_over):
+        self.flags, self.n_over = self.marks.flags, self.marks.n_over
+        for t in (self.stress_instant, self.ov1, self.marks.raw):
             self._ptrs.add(t.untyped_storage().data_ptr())
         # graphs read and write these addresses: a new set drops them
         self._graphs.clear()
@@ -170,6 +194,10 @@ class StepGraph:
         """Copy a state into the static buffers (None: that part is
         unchanged).  A state of another shape reallocates them, and each
         program is captured again at its next replay."""
+        with tracing.span("step_graph.load", self._stats["spans"]):
+            self._load(floes, ocean, domain)
+
+    def _load(self, floes, ocean, domain) -> None:
         floes = self.floes if floes is None else floes
         ocean = self.ocean if ocean is None else ocean
         domain = self.domain if domain is None else domain
@@ -182,8 +210,9 @@ class StepGraph:
     def state(self):
         """A copy of the current (floes, ocean, domain), which no replay
         writes."""
-        return _rebuild([t.clone() for t in self._static], self.floes,
-                        self.ocean, self.domain)
+        with tracing.span("step_graph.state", self._stats["spans"]):
+            return _rebuild([t.clone() for t in self._static], self.floes,
+                            self.ocean, self.domain)
 
     def own(self, x):
         """``x`` (a tensor, or tuples, NamedTuples and dicts of them) with
@@ -234,17 +263,22 @@ class StepGraph:
 
     def _run(self, prog) -> None:
         """One program, eagerly: its outputs copied into the static
-        buffers."""
+        buffers, between the program's first mark and, unless the program
+        is the step's first half, the step's last."""
+        self.marks(0)
         self._copy_in(self._compute(prog))
+        if prog[0] != "collide":
+            self.marks(tracing.MARK_STEP)
 
     def prepare(self, progs) -> None:
         """Capture every program of ``progs`` that has no graph yet (each
         warmed up first).  On the CPU, or with ``_eager``, nothing to do."""
         if not self.capture:
             return
-        for prog in progs:
-            if prog not in self._graphs:
-                self._capture(prog)
+        with tracing.span("step_graph.prepare", self._stats["spans"]):
+            for prog in progs:
+                if prog not in self._graphs:
+                    self._capture(prog)
 
     def _capture(self, prog) -> None:
         t0 = time.perf_counter()
@@ -252,14 +286,16 @@ class StepGraph:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         n0 = {k: m.launch_count() for k, m in KERNELS.items()}
-        with torch.cuda.stream(side):
-            self._compute(prog)  # warm-up: outputs dropped
+        self.marks.on = False
+        try:
+            with torch.cuda.stream(side):
+                self._compute(prog)  # warm-up: outputs dropped, nothing marked
+        finally:
+            self.marks.on = True
         cur.wait_stream(side)
         n = {k: m.launch_count() - n0[k] for k, m in KERNELS.items()}
-        # a new dict each time, so a shallow copy of the stats keeps its own
-        self.stats["warmup_launches"] = {
-            k: v + n[k] for k, v in self.stats["warmup_launches"].items()}
         for k in KERNELS:
+            self._stats["warmup_launches"][k] += n[k]
             _warmup_launches[k] += n[k]
         graph = torch.cuda.CUDAGraph()
         c0 = {k: m.captured_count() for k, m in KERNELS.items()}
@@ -278,16 +314,16 @@ class StepGraph:
         self._captured_launches[prog] = {
             k: m.captured_count() - c0[k] for k, m in KERNELS.items()}
         self._graphs[prog] = graph
-        self.stats["captures"] += 1
+        self._stats["captures"] += 1
         if prog in self._ever_captured:
-            self.stats["recaptures"] += 1
+            self._stats["recaptures"] += 1
         self._ever_captured.add(prog)
-        self.stats["capture_seconds"] += time.perf_counter() - t0
+        self._stats["capture_seconds"] += time.perf_counter() - t0
 
     def replay(self, prog) -> None:
         """Run one program: its graph on the card (captured first if it has
         none), the program itself on the CPU or with ``_eager``."""
-        self.stats["replays"] += 1
+        self._stats["replays"] += 1
         if not self.capture:
             self._run(prog)
             return
@@ -308,3 +344,17 @@ class StepGraph:
     def step(self, tstep: int) -> None:
         """One whole step at ``tstep``."""
         self.replay(self.step_prog(tstep))
+
+
+def _copy(d: dict) -> dict:
+    """``d`` with every dict in it copied (the values are numbers)."""
+    return {k: _copy(v) if isinstance(v, dict) else v for k, v in d.items()}
+
+
+def _less(now, before):
+    """``now`` less ``before``, numbers or dicts of them by key (a key that
+    ``before`` lacks counts from 0)."""
+    if isinstance(now, dict):
+        before = before or {}
+        return {k: _less(v, before.get(k)) for k, v in now.items()}
+    return now - (before or 0)

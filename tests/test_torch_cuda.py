@@ -568,3 +568,63 @@ def test_cuda_f32_drift_within_the_jax_bounds(scenario):
     for k in ("ke", "px", "py"):
         assert abs(drift[k]) < 0.01, drift
     assert abs(drift["l"]) < F32_DRIFT_BOUNDS[scenario], drift
+
+
+@pytest.mark.cuda
+def test_cuda_layer_marks_in_the_graph():
+    """The step's layer marks on the card (``tracing``), on the 500-floe
+    shear field: a graph replay's counters equal those of the same steps
+    launched one by one (``_eager``, the same mark kernels) in steps,
+    candidate pairs and slow rows; in a profiled replay every mark kernel
+    (``subzero_mark<k>``) runs once a step, and each layer's seconds by the
+    marks' clock are within 25% of the time between the marks' own events
+    in the trace.  (An eager step's layer seconds are the host's launch
+    time, not the device's, so they are not held to the graph's.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from subzero_tpu_torch import tracing
+    from subzero_tpu_torch.bench import build_sim
+    from subzero_tpu_torch.step_graph import StepGraph
+
+    dev = cuda_or_skip()
+    sim = build_sim(500, 1e5, 2e3, device=dev)
+    n, lead = 20, 3
+
+    def stepped(eager):
+        g = StepGraph(sim, _eager=eager)
+        g.prepare({g.step_prog(t) for t in range(1, n + 1)})
+        g.marks.begin_call()
+        for t in range(1, n + 1):
+            g.step(t)
+        g.marks.read()
+        return g
+
+    eager, graph = stepped(True), stepped(False)
+    for k in ("steps_marked", "pairs", "slow_rows", "pairs_max", "slow_rows_max"):
+        assert graph.stats[k] == eager.stats[k], k
+    assert graph.stats["steps_marked"] == n and graph.stats["pairs"] > 0
+
+    # one profiler session, the only one this graph meets; the lead takes
+    # the launches a trace may drop at its start
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(n + 1, n + 1 + lead):
+            graph.step(t)
+        graph.marks.read()
+        before = graph.snapshot()
+        for t in range(n + 1 + lead, 2 * n + 1 + lead):
+            graph.step(t)
+        graph.marks.read()
+    marked = graph.stats_since(before)
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    starts = {k: sorted(e.start_ns() for e in ev if f"subzero_mark<{k}>" in e.name())
+              for k in range(len(tracing.LAYERS))}
+    counts = {k: len(v) for k, v in starts.items()}
+    assert len(set(counts.values())) == 1 and counts[0] >= n, counts
+    last = {k: v[-n:] for k, v in starts.items()}
+    for k, layer in enumerate(tracing.LAYERS[1:], 1):
+        traced = 1e-9 * sum(b - a for a, b in zip(last[k - 1], last[k]))
+        assert marked["layer_s"][layer] == pytest.approx(traced, rel=0.25), (
+            layer, marked["layer_s"], traced)
