@@ -218,7 +218,8 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
-          "many_floes_2000", "binned", "overlaps", "lifecycle", "regions", "graph",
+          "many_floes_2000", "binned", "overlaps", "lifecycle", "regions", "forces",
+          "graph",
           "lifecycle_card_cpu", "writers", "restart", "bench", "f32_drift",
           "decomp")
 EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime", "overflow_source",
@@ -908,6 +909,128 @@ def phase_regions(dev, report):
 
 
 # ---------------------------------------------------------------------------
+# the force law (B4) on the main path's contact lists
+# ---------------------------------------------------------------------------
+
+# torch.profiler's name of B4's device function holds this
+B4_EVENT = "forces_kernel"
+
+
+def force_law_inputs(sim):
+    """The force law's inputs at a Simulation's state, as its step makes
+    them: (model, narrow-phase batch, B1's result, the slow path)."""
+    from subzero_tpu_torch.geometry.clip import two_cross_dispatch
+    from subzero_tpu_torch.physics import collisions
+
+    m = sim.model
+    nb = collisions.narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
+    tc = two_cross_dispatch(*nb.two_cross_args())
+    slow = collisions._slow_path(nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
+    return m, nb, tc, slow
+
+
+def forces_bound(law_args, buf, inputs) -> dict:
+    """The least time the card could take for one force-law launch: every
+    input array it reads (``inputs``) once and its output buffer written
+    once, over the memory rate (its ~150 operations an item are ~0.02 us at
+    4 800 items)."""
+    nbytes = buf.numel() + sum(x.numel() * x.element_size() for x in inputs)
+    return {"bound_ms": 1e3 * nbytes / H100_BYTES_PER_S, "bound_by": "bytes",
+            "bytes": nbytes, "items": law_args.PC + law_args.S * law_args.R}
+
+
+def phase_forces(dev, report):
+    """The force law's kernel (B4) against the plain force law on the card,
+    f32, to the bit (with the step's marking and without), and its times, on
+    the contact lists of shear_flow_500 and many_floes_8000 (binned) after 20
+    steps: its own device time from whole traces (torch.profiler), queued,
+    the plain force law's time (the ~380 kernels it replaces), an empty
+    launch's, and the byte bound."""
+    from subzero_tpu_torch.physics import collisions, forces
+    from subzero_tpu_torch.simulation import run_scan
+
+    out = {}
+    for name, (n, L, bins) in {"shear_flow_500": (500, 1e5, False),
+                               "many_floes_8000": (8000, 4e5, True)}.items():
+        sim, _ = run_scan(build_sim(n, L, 2e3, device=dev, dtype=torch.float32,
+                                    bins=bins), 20)
+        m, nb, tc, slow = force_law_inputs(sim)
+        pairs = nb.pairs
+        for marking in (True, False):
+            cs = sim.collision_settings if marking else None
+            got = collisions._force_law(sim.consts, sim.dt, cs, m.domain.vals, m.floes,
+                                        nb, tc, slow, marking)
+            ref = collisions._force_law_plain(sim.consts, sim.dt, cs, m.domain.vals,
+                                              m.floes, nb, tc, slow, marking)
+            torch.cuda.synchronize()
+            for f, a, b in zip(forces.ForceLaw._fields, got, ref):
+                pairs_ab = zip(a, b) if f == "s_sides" else [(a, b)]
+                for x, y in pairs_ab:
+                    if x is not None and not torch.equal(bits_of(x), bits_of(y)):
+                        raise AssertionError(f"{name}: B4 and the plain force law "
+                                             f"differ in {f} (marking {marking})")
+        args = forces.prepare(sim.consts, sim.dt, sim.collision_settings, m.domain.vals,
+                              m.floes, nb.q_table, pairs.qi, pairs.qj, pairs.shift,
+                              pairs.valid, tc, slow.sel, slow.i, slow.j, slow.shift,
+                              slow.regions, True)
+        law_args, buf, inputs = args[0], args[1], args[3]
+
+        def launch():
+            forces.launch(law_args, torch.float32)
+
+        def plain():
+            collisions._force_law_plain(sim.consts, sim.dt, sim.collision_settings,
+                                        m.domain.vals, m.floes, nb, tc, slow, True)
+
+        out[name] = {
+            "candidate_rows": int(pairs.qi.shape[0]),
+            "valid_rows": int(pairs.valid.sum()),
+            "slow_rows": int(slow.sel.shape[0]), "live_slow_rows": int(slow.valid.sum()),
+            "regions_a_slow_row": int(slow.regions.area.shape[1]),
+            "bitwise_equal_plain": True,
+            "device_ms": profiled_kernel_ms(launch, B4_EVENT),
+            "queued_ms": queued_ms(launch),
+            "plain_ms": median_ms(plain),
+            "plain_device_ops": plain_device_ops(plain),
+            "empty_device_ms": profiled_kernel_ms(forces_empty_launch, "empty_kernel"),
+            **forces_bound(law_args, buf, inputs),
+        }
+        del sim, nb, tc, slow, args
+        torch.cuda.empty_cache()
+    report["forces_timing"] = out["shear_flow_500"]
+    emit("forces", dtype="float32", **out)
+
+
+def bits_of(x):
+    """A tensor's bits: floats as the integers of their width."""
+    x = x.contiguous()
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
+def forces_empty_launch():
+    """An empty kernel through B4's library: the floor under its launch."""
+    from subzero_tpu_torch.geometry import two_cross
+    from subzero_tpu_torch.physics import forces
+
+    two_cross.empty_launch(forces._load())
+
+
+def plain_device_ops(fn) -> int:
+    """The device operations (kernels and memsets) one call of ``fn`` runs
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+# ---------------------------------------------------------------------------
 # an earlier commit's kernel on the same batches (--parent)
 # ---------------------------------------------------------------------------
 
@@ -1153,7 +1276,7 @@ def replay_from(sim, n_steps, **kw):
 
 # the names of each kernel's device functions, as torch.profiler lists them
 KERNEL_EVENTS = {"two_cross": ("two_cross_kernel", "two_cross_wide_kernel"),
-                 "regions": ("regions_kernel",)}
+                 "regions": ("regions_kernel",), "forces": ("forces_kernel",)}
 
 
 def runs_under_replay(fn, n_expected, tries=3, kernel="two_cross") -> int:
@@ -1910,9 +2033,11 @@ def graph_against_eager(sim, name) -> dict:
             end = run_scan(fork(sim), n, _eager=True)[0].model
         torch.cuda.synchronize()
         out[f"{how}_step_ms"] = 1e3 * (time.perf_counter() - t0) / n
-        if path_launches() != n or path_launches("regions") != b2_per_step() * n:
-            raise AssertionError(f"{name} ({how}): {path_launches()} (B1) and "
-                                 f"{path_launches('regions')} (B2) launches in {n} steps")
+        if (path_launches() != n or path_launches("regions") != b2_per_step() * n
+                or path_launches("forces") != n):
+            raise AssertionError(f"{name} ({how}): {path_launches()} (B1), "
+                                 f"{path_launches('regions')} (B2) and "
+                                 f"{path_launches('forces')} (B4) launches in {n} steps")
         ends[how] = end
     same_state(ends["graph"], ends["eager"], f"{name}: graph against eager")
     if not torch.equal(ends["graph"].domain.vals, ends["eager"].domain.vals):
@@ -1920,13 +2045,16 @@ def graph_against_eager(sim, name) -> dict:
     out["kernel_runs_on_the_card"] = runs_under_replay(lambda: replay_from(sim, n), n)
     out["slow_clip_runs_on_the_card"] = runs_under_replay(
         lambda: replay_from(sim, n), b2_per_step() * n, kernel="regions")
+    out["force_law_runs_on_the_card"] = runs_under_replay(
+        lambda: replay_from(sim, n), n, kernel="forces")
     if graph.stats["captures"] != out["captures"]:
         raise AssertionError(f"{name}: run_scan captured again: {graph.stats}")
     out.update(bitwise_equal=True, kernel_launches_per_step=1,
                slow_clip_launches_per_step=b2_per_step(),
                recaptures=graph.stats["recaptures"],
                kernel_runs_per_replay=runs_per_replay(graph),
-               slow_clip_runs_per_replay=runs_per_replay(graph, "regions"))
+               slow_clip_runs_per_replay=runs_per_replay(graph, "regions"),
+               force_law_runs_per_replay=runs_per_replay(graph, "forces"))
     return out
 
 
@@ -3880,7 +4008,7 @@ def main(argv=None) -> int:
         "determinism": lambda d, r: phase_determinism(d),
         "many_floes_2000": phase_many_floes, "binned": phase_binned,
         "overlaps": phase_overlaps, "lifecycle": phase_lifecycle,
-        "regions": phase_regions, "graph": phase_graph,
+        "regions": phase_regions, "forces": phase_forces, "graph": phase_graph,
         "lifecycle_card_cpu": phase_lifecycle_card_cpu, "writers": phase_writers,
         "restart": phase_restart, "bench": phase_bench, "f32_drift": phase_f32_drift,
         "decomp": lambda d, r: (torch.cuda.empty_cache(), phase_decomp(d, r)),
@@ -3914,6 +4042,7 @@ def main(argv=None) -> int:
     # launches is the slice phase's count
     t = report.get("timing", {})
     t2 = report.get("regions_timing", {})
+    t4 = report.get("forces_timing", {})
     print(json.dumps({"kernels": [{
         "name": "two_cross",
         "route": "cuda",
@@ -3969,6 +4098,22 @@ def main(argv=None) -> int:
         # every slow batch of this run (regions and bench phases; the
         # lattice's retries and the wide rings' CAP 48 among them)
         "by_batch": report.get("regions_by_batch", {}),
+    }, {
+        # the force law at shear_flow_500's contact lists after 20 steps (the
+        # forces phase): ms is its kernel's own device time, one launch a step
+        "name": "forces",
+        "route": "cuda",
+        "source": "subzero_tpu_torch/csrc/forces.cu",
+        "replaces": "the elementwise force law of subzero_tpu/physics/collisions.py "
+                    "(_region_forces and the fuse / remove marking; jnp, fused by XLA)",
+        "graph_warmup_launches": step_graph.warmup_launch_count("forces"),
+        "ms": t4.get("device_ms"),
+        "plain_ms": t4.get("plain_ms"),
+        "bound_ms": t4.get("bound_ms"),
+        "bound_by": t4.get("bound_by"),
+        "library_ms": None,  # no one PyTorch call computes this function
+        **{k: t4.get(k) for k in ("queued_ms", "empty_device_ms", "plain_device_ops",
+                                  "items", "bytes")},
     }]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

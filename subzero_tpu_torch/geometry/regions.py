@@ -40,9 +40,13 @@ import torch
 from . import two_cross
 from .clip import ClipRegions, first_true, intersect_regions
 
+# the force law's kernel (B4, physics/forces.py) is built into this library,
+# so that every build of the slow clip builds it too
 SOURCES = (two_cross.CSRC_DIR / "intersect_regions.cu",
            two_cross.CSRC_DIR / "intersect_regions.cuh",
-           two_cross.CSRC_DIR / "two_cross.cuh")
+           two_cross.CSRC_DIR / "two_cross.cuh",
+           two_cross.CSRC_DIR / "forces.cu",
+           two_cross.CSRC_DIR / "forces.cuh")
 MAX_CAP = 64     # crossings a row keeps: two a lane
 MAX_VERTS = two_cross.MAX_VERTS  # the widest ring, as the narrow phase's
 # the retry's perturbation: the first one flipped and scaled

@@ -80,9 +80,9 @@ def _nvcc() -> str:
 
 
 def build_library(name: str, sources, force: bool = False, defines=()) -> dict:
-    """Compile ``sources[0]`` (the other sources are headers it includes)
-    into ``_build/lib{name}.so`` if the library is missing or older than a
-    source, with the preprocessor ``defines`` (``-D...`` flags) added.
+    """Compile the ``.cu`` files of ``sources`` (the others are headers they
+    include) into ``_build/lib{name}.so`` if the library is missing or older
+    than a source, with the preprocessor ``defines`` (``-D...`` flags) added.
     Returns {"path", "built", "seconds", "log"}; raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}.so"
@@ -94,7 +94,8 @@ def build_library(name: str, sources, force: bool = False, defines=()) -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(lib_path), "built": False, "seconds": 0.0, "log": log}
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(sources[0])]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           *(str(s) for s in sources if str(s).endswith(".cu"))]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -12,8 +12,10 @@ capacities and overflow flags as the reference:
   * the fused two-crossing narrow phase (``two_cross_dispatch``: the CUDA
     kernel on the card) handles the common contacts, and the general region
     clip the few multi-region or degenerate ones, with an odd-parity retry;
-  * Hopkins elastic + Coulomb friction forces (collisions.jl:30-283) are
-    accumulated into per-floe force, torque, stress moments and overlap.
+  * Hopkins elastic + Coulomb friction forces (collisions.jl:30-283; the
+    force law, ``_force_law``: one CUDA kernel on the card,
+    ``physics/forces.py``) are accumulated into per-floe force, torque,
+    stress moments and overlap.
 
 Accumulations are deterministic: row-structured reshape sums, segment sums
 over stably sorted rows, or writes to distinct indices - never float
@@ -45,6 +47,7 @@ from ..geometry.clip import (
 )
 from ..geometry.regions import intersect_regions_dispatch
 from ..settings import CollisionSettings
+from .forces import ContactSides, ForceLaw, force_law_cuda
 
 # rows of the slow path's parity retry
 RETRY_CAP = 16
@@ -655,10 +658,12 @@ def _put_rows(x, idx, n: int):
     return out[:n]
 
 
-def _accumulate_contacts(N, i, j, s: _PairSides, pair_valid, is_ff, shift,
+def _accumulate_contacts(N, i, j, s, pair_valid, is_ff, shift,
                          force, fp, overlap_rec, row_cap=None, n_rows=None):
     """Symmetric +F/-F accumulation of one contact list onto the floe pool
     (replaces the reference's serial reaction pass, collisions.jl:799-862).
+    ``s``: the list's sides (a ``_PairSides`` or ``forces.ContactSides``:
+    the centroids ``cent_i`` and ``cent_j`` are read).
     With ``row_cap`` the i side of the first ``n_rows`` (default N) rows is
     row-structured and sums by reshape.
     Returns (col_force, col_trq, stress_moments, overarea) per floe."""
@@ -864,6 +869,93 @@ def _slow_path(nb: "NarrowBatch", tc, pair_cap: int, clip_cap: int,
                       pairs.shift[ssafe], sregions, n_slow, bad1)
 
 
+def _force_law_plain(consts: Constants, dt: float, cs, vals, floes, nb, tc,
+                     slow: _SlowPairs, marking: bool) -> ForceLaw:
+    """The force law in plain PyTorch: with ``marking`` (the step) the
+    overlap total of every candidate row and its fuse / remove marks, which
+    gate both lists' pairs; without (``pair_interactions``) the pairs are
+    gated by their validity and overlap alone.  Then ``_region_forces`` on
+    the narrow phase's one-region rows and on the slow clip's regions."""
+    pairs, sides0 = nb.pairs, nb.sides
+    PC = pairs.qi.shape[0]
+    ssel, svalid, ssafe, sregions = slow.sel, slow.valid, slow.safe, slow.regions
+    if marking:
+        fast_ok = tc.ok
+        contain0 = tc.contain
+        slow_total = torch.where(svalid, sregions.total_area, 0.0)
+        # total intersection area for every candidate pair (containment
+        # included); each valid slow row targets a distinct pair, so its sum
+        # is a write
+        total_area0 = (
+            contain0
+            + torch.where(fast_ok, tc.area, 0.0)
+            + _put_rows(slow_total, ssel, PC)
+        )
+
+        # ------- fuse / remove marking (collisions.jl:364-368, 522-525) ----
+        area_i0 = sides0.area_i
+        area_j0 = torch.where(sides0.is_floe_j, sides0.area_j, torch.inf)
+        overlap_frac0 = torch.maximum(total_area0 / area_i0, total_area0 / area_j0)
+        is_ff_pair0 = sides0.is_floe_j & pairs.valid
+        fuse_pair0 = (
+            is_ff_pair0
+            & (overlap_frac0 > cs.floe_floe_max_overlap)
+            & (total_area0 > 0)
+        )
+        # domain pairs: remove if max single-region overlap fraction too big
+        smax_reg = torch.amax(torch.where(sregions.valid, sregions.area, 0.0), dim=1)
+        max_reg0 = torch.maximum(
+            torch.where(fast_ok, tc.area, 0.0),
+            _put_rows(torch.where(svalid, smax_reg, 0.0), ssel, PC),
+        )
+        # containment against a wall counts as a full-floe region
+        max_reg0 = torch.maximum(
+            max_reg0, torch.where(~sides0.is_floe_j, contain0, 0.0)
+        )
+        dom_remove_pair0 = (
+            pairs.valid
+            & ~sides0.is_floe_j
+            & (max_reg0 / area_i0 > cs.floe_domain_max_overlap)
+        )
+        pair_on0 = fast_ok & ~fuse_pair0 & ~dom_remove_pair0
+        pair_on1 = (
+            svalid
+            & ~fuse_pair0[ssafe]
+            & ~dom_remove_pair0[ssafe]
+            & (slow_total > 0)
+        )
+    else:
+        fast_ok = pairs.valid & tc.ok
+        is_ff_pair0 = fuse_pair0 = dom_remove_pair0 = None
+        pair_on0 = fast_ok
+        pair_on1 = svalid & (sregions.total_area > 0)
+
+    sides1 = _gather_sides(floes, nb.q_table, slow.i, slow.j)
+    f_force, f_fp, f_rec = _region_forces(
+        consts, dt, vals, sides0, pairs.shift, _fast_regions(tc, fast_ok), pair_on0,
+    )
+    s_force, s_fp, s_rec = _region_forces(
+        consts, dt, vals, sides1, slow.shift, sregions, pair_on1,
+    )
+    return ForceLaw(f_force, f_fp, f_rec, s_force, s_fp, s_rec, is_ff_pair0,
+                    fuse_pair0, dom_remove_pair0,
+                    ContactSides(sides1.cent_i, sides1.cent_j, sides1.is_floe_j))
+
+
+def _force_law(consts: Constants, dt: float, cs, vals, floes, nb, tc,
+               slow: _SlowPairs, marking: bool) -> ForceLaw:
+    """The force law on the tensors' device: CUDA tensors go to its kernel
+    (``forces.force_law_cuda``, one launch, B4), which raises on what it
+    cannot take (no fallback); CPU tensors go to ``_force_law_plain``.
+    ``cs``: the CollisionSettings (None without ``marking``)."""
+    if tc.area.is_cuda:
+        pairs = nb.pairs
+        return force_law_cuda(consts, dt, cs, vals, floes, nb.q_table, pairs.qi,
+                              pairs.qj, pairs.shift, pairs.valid, tc, slow.sel,
+                              slow.i, slow.j, slow.shift, slow.regions, marking)
+    return _force_law_plain(consts, dt, cs, vals, floes, nb, tc, slow, marking)
+
+
 def timestep_collisions(
     floes: FloeState,
     domain: Domain,
@@ -918,7 +1010,7 @@ def timestep_collisions(
 
     # ---------------- fused narrow phase (fast path) ------------------------
     nb = narrow_phase_batch(floes, domain, pair_cap, bins, owned_rows)
-    pairs, sides0, q_table, row_cap0 = nb.pairs, nb.sides, nb.q_table, nb.row_cap
+    pairs, sides0, row_cap0 = nb.pairs, nb.sides, nb.row_cap
     PC = pairs.qi.shape[0]
     i0 = pairs.qi
     j0 = pairs.qj
@@ -929,77 +1021,26 @@ def timestep_collisions(
     # the narrow phase zeroes the rows that are not candidates (cnt 0, ok
     # False, contain 0), so nothing here masks them again
     tc = two_cross_dispatch(*nb.two_cross_args())
-    contain0 = tc.contain
-    fast_ok = tc.ok
 
     # ---------------- slow path: general region kernel ---------------------
     slow = _slow_path(nb, tc, pair_cap, clip_cap, retry=True)
-    ssel, svalid, ssafe, sregions = slow.sel, slow.valid, slow.safe, slow.regions
+    svalid, sregions = slow.valid, slow.regions
     i1, j1, shift1, n_slow = slow.i, slow.j, slow.shift, slow.n_slow
     slow_cap = svalid.shape[0]
     if mark is not None:
         mark(2, slow=n_slow, slow_cap=slow_cap)
-    slow_total = torch.where(svalid, sregions.total_area, 0.0)
-
-    # total intersection area for every candidate pair (containment included);
-    # each valid slow row targets a distinct pair, so its sum is a write
-    total_area0 = (
-        contain0
-        + torch.where(fast_ok, tc.area, 0.0)
-        + _put_rows(slow_total, ssel, PC)
-    )
-
-    # ------- fuse / remove marking (collisions.jl:364-368, 522-525) --------
-    area_i0 = sides0.area_i
-    area_j0 = torch.where(sides0.is_floe_j, sides0.area_j, torch.inf)
-    overlap_frac0 = torch.maximum(total_area0 / area_i0, total_area0 / area_j0)
-    is_ff_pair0 = sides0.is_floe_j & pvalid0
-    fuse_pair0 = (
-        is_ff_pair0
-        & (overlap_frac0 > collision_settings.floe_floe_max_overlap)
-        & (total_area0 > 0)
-    )
-    # domain pairs: remove if max single-region overlap fraction too big
-    smax_reg = torch.amax(torch.where(sregions.valid, sregions.area, 0.0), dim=1)
-    max_reg0 = torch.maximum(
-        torch.where(fast_ok, tc.area, 0.0),
-        _put_rows(torch.where(svalid, smax_reg, 0.0), ssel, PC),
-    )
-    # containment against a wall counts as a full-floe region
-    max_reg0 = torch.maximum(
-        max_reg0, torch.where(~sides0.is_floe_j, contain0, 0.0)
-    )
-    dom_remove_pair0 = (
-        pvalid0
-        & ~sides0.is_floe_j
-        & (max_reg0 / area_i0 > collision_settings.floe_domain_max_overlap)
-    )
-
-    # ---------------- forces on both contact lists -------------------------
-    fast_regions = _fast_regions(tc, fast_ok)
-    pair_on0 = fast_ok & ~fuse_pair0 & ~dom_remove_pair0
-    pair_on1 = (
-        svalid
-        & ~fuse_pair0[ssafe]
-        & ~dom_remove_pair0[ssafe]
-        & (slow_total > 0)
-    )
-    sides1 = _gather_sides(floes, q_table, i1, j1)
-    f_force, f_fp, f_rec = _region_forces(
-        consts, dt, vals, sides0, pairs.shift, fast_regions, pair_on0,
-    )
-    s_force, s_fp, s_rec = _region_forces(
-        consts, dt, vals, sides1, shift1, sregions, pair_on1,
-    )
+    law = _force_law(consts, dt, collision_settings, vals, floes, nb, tc, slow,
+                     marking=True)
+    is_ff_pair0, fuse_pair0, dom_remove_pair0 = law.is_ff, law.fuse, law.dom_remove
     if mark is not None:
         mark(3)
     f_acc = _accumulate_contacts(
         N, i0, j0, sides0, pvalid0, is_ff_pair0, pairs.shift,
-        f_force, f_fp, f_rec, row_cap=row_cap0, n_rows=NR,
+        law.f_force, law.f_fp, law.f_rec, row_cap=row_cap0, n_rows=NR,
     )
     s_acc = _accumulate_contacts(
-        N, i1, j1, sides1, svalid, sides1.is_floe_j & svalid, shift1,
-        s_force, s_fp, s_rec,
+        N, i1, j1, law.s_sides, svalid, law.s_sides.is_floe_j & svalid, shift1,
+        law.s_force, law.s_fp, law.s_rec,
     )
     col_force = f_acc[0] + s_acc[0]
     col_trq = f_acc[1] + s_acc[1]
@@ -1145,21 +1186,12 @@ def pair_interactions(
     N = floes.capacity
     vals = domain.vals
     nb = narrow_phase_batch(floes, domain, pair_cap, bins)
-    pairs, sides0 = nb.pairs, nb.sides
+    pairs = nb.pairs
     tc = two_cross_dispatch(*nb.two_cross_args())
     fast_ok = pairs.valid & tc.ok
-    fast_regions = _fast_regions(tc, fast_ok)
-    f_force, f_fp, f_rec = _region_forces(
-        consts, dt, vals, sides0, pairs.shift, fast_regions, fast_ok,
-    )
-
     # slow path (multi-region contacts)
     slow = _slow_path(nb, tc, pair_cap, clip_cap, retry=False)
-    sides1 = _gather_sides(floes, nb.q_table, slow.i, slow.j)
-    s_force, s_fp, s_rec = _region_forces(
-        consts, dt, vals, sides1, slow.shift, slow.regions,
-        slow.valid & (slow.regions.total_area > 0),
-    )
+    law = _force_law(consts, dt, None, vals, floes, nb, tc, slow, marking=False)
 
     def rows(i, j, s, force, fp, rec, base_valid, shift):
         R = force.shape[1]
@@ -1190,10 +1222,10 @@ def pair_interactions(
             "valid": cat([out_valid.reshape(-1), m_valid.reshape(-1)]),
         }
 
-    rf = rows(pairs.qi, pairs.qj, sides0, f_force, f_fp, f_rec, fast_ok,
-              pairs.shift)
-    rs = rows(slow.i, slow.j, sides1, s_force, s_fp, s_rec, slow.valid,
-              slow.shift)
+    rf = rows(pairs.qi, pairs.qj, nb.sides, law.f_force, law.f_fp, law.f_rec,
+              fast_ok, pairs.shift)
+    rs = rows(slow.i, slow.j, law.s_sides, law.s_force, law.s_fp, law.s_rec,
+              slow.valid, slow.shift)
     out = {k: torch.cat([rf[k], rs[k]]) for k in rf}
     out["overflow"] = (
         pairs.overflow

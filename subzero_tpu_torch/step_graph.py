@@ -26,11 +26,11 @@ pool:
 A program is warmed up once before its capture (run eagerly on a side
 stream, outputs dropped: cuBLAS handles, the kernels' libraries, the
 allocator), as ``torch.cuda.graphs`` asks.  The launches of the step's
-hand-written kernels (``KERNELS``: the narrow phase and the slow clip) are
-counted where they run: the warm-up's by the kernel's wrapper, a replay's
-by the graph (``add_replayed``, the launches the program captured;
-``chip_smoke.py``'s ``graph`` phase holds that count against the kernels'
-runs on the card, by torch.profiler).
+hand-written kernels (``KERNELS``: the narrow phase, the slow clip and the
+force law) are counted where they run: the warm-up's by the kernel's
+wrapper, a replay's by the graph (``add_replayed``, the launches the
+program captured; ``chip_smoke.py``'s ``graph`` phase holds that count
+against the kernels' runs on the card, by torch.profiler).
 
 The step's bodies carry the graph's layer marks (``tracing.Marks``): a
 mark opens each program and one closes each step, and the bodies mark the
@@ -65,9 +65,10 @@ from .core.fields import OceanState
 from .core.floes import FloeState
 from .geometry import regions as _regions
 from .geometry import two_cross as _two_cross
+from .physics import forces as _forces
 
 # the step's hand-written kernels, whose wrappers count their launches
-KERNELS = {"two_cross": _two_cross, "regions": _regions}
+KERNELS = {"two_cross": _two_cross, "regions": _regions, "forces": _forces}
 
 _warmup_launches = dict.fromkeys(KERNELS, 0)
 

@@ -3,9 +3,10 @@ PyTorch version, the wrapper's checks, the slow clip's kernel against its
 g++ shim (bitwise) and its plain version, with n_slow read on the card, a short run_scan that goes through
 the kernel and agrees with the CPU run, the step's CUDA graph against the
 eager step (bitwise) and a capture that fails (it raises), ``pair_overlaps``
-on the card against the CPU, a 20-step ``run`` with a fracture pass, and the
+on the card against the CPU, a 20-step ``run`` with a fracture pass, the
 JAX package's f32 conservation gate (5 000 steps of head_on and
-three_floes).
+three_floes), and the force law's kernel (B4) against the plain force law,
+in the step, its graph, ``pair_interactions`` and a restart, to the bit.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs on a machine that has none, without the JAX-side
@@ -54,6 +55,8 @@ from subzero_tpu_torch.geometry.clip import (
     two_cross_dispatch,
     two_cross_pairs,
 )
+from subzero_tpu_torch.physics import collisions as tcol
+from subzero_tpu_torch.physics import forces
 from subzero_tpu_torch.physics.collisions import pair_overlaps
 from subzero_tpu_torch.settings import (
     CollisionSettings,
@@ -628,3 +631,125 @@ def test_cuda_layer_marks_in_the_graph():
         traced = 1e-9 * sum(b - a for a, b in zip(last[k - 1], last[k]))
         assert marked["layer_s"][layer] == pytest.approx(traced, rel=0.25), (
             layer, marked["layer_s"], traced)
+
+
+# ---------------------------------------------------------------------------
+# the force law's kernel (B4)
+# ---------------------------------------------------------------------------
+
+def _bits(x):
+    """A tensor's bits: floats as the integers of their width."""
+    x = x.contiguous()
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
+def _force_fields(dev):
+    """The f32 fields the force law is held on, after 20 steps on the card:
+    the 500-floe shear field (bench.build_sim) and simple_strait (collision
+    walls east and west, three topography polygons)."""
+    from subzero_tpu_torch.bench import build_sim
+    from subzero_tpu_torch.examples import simple_strait
+
+    shear, _ = run_scan(build_sim(500, 1e5, 2e3, device=dev), 20)
+    strait, _ = run_scan(simple_strait.build(n_dt=0, device=dev), 20)
+    return {"shear_flow_500": shear, "simple_strait": strait}
+
+
+def _law_inputs(sim):
+    m = sim.model
+    nb = tcol.narrow_phase_batch(m.floes, m.domain, sim.pair_cap, sim.bins)
+    tc = two_cross_dispatch(*nb.two_cross_args())
+    slow = tcol._slow_path(nb, tc, sim.pair_cap, sim.clip_cap, retry=True)
+    return m, nb, tc, slow
+
+
+@pytest.mark.cuda
+def test_cuda_force_law_kernel_equals_plain_bitwise():
+    """B4 against the plain force law on the card, f32, with the step's
+    marking and without it (pair_interactions'): every force, force point,
+    overlap record, mark and slow side equal to the bit; one launch a call.
+    The walled field has floe-wall and floe-topography rows with force."""
+    dev = cuda_or_skip()
+    for name, sim in _force_fields(dev).items():
+        m, nb, tc, slow = _law_inputs(sim)
+        for marking in (True, False):
+            cs = sim.collision_settings if marking else None
+            before = forces.launch_count()
+            got = tcol._force_law(sim.consts, sim.dt, cs, m.domain.vals, m.floes, nb,
+                                  tc, slow, marking)
+            torch.cuda.synchronize()
+            assert forces.launch_count() == before + 1
+            ref = tcol._force_law_plain(sim.consts, sim.dt, cs, m.domain.vals, m.floes,
+                                        nb, tc, slow, marking)
+            for f in forces.ForceLaw._fields:
+                a, b = getattr(got, f), getattr(ref, f)
+                if f == "s_sides":
+                    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b)), name
+                elif a is None:
+                    assert b is None and not marking, (name, f)
+                else:
+                    assert torch.equal(_bits(a), _bits(b)), (name, marking, f)
+        N, j = m.floes.capacity, nb.pairs.qj
+        has_force = got.f_force[:, 0].abs().sum(-1) > 0
+        assert bool(has_force.any()), name
+        if name == "simple_strait":
+            assert bool((has_force & (j >= N)).any()), "no domain row with force"
+
+
+@pytest.mark.cuda
+def test_cuda_step_and_interactions_with_the_kernel_equal_plain(monkeypatch):
+    """timestep_collisions and pair_interactions on the card with B4 and
+    with the plain force law in its place: every output equal to the bit."""
+    dev = cuda_or_skip()
+    for name, sim in _force_fields(dev).items():
+        m = sim.model
+
+        def both():
+            res = tcol.timestep_collisions(m.floes, m.domain, sim.consts, sim.dt,
+                                           sim.collision_settings, sim.pair_cap,
+                                           sim.clip_cap, sim.bins)
+            rows = tcol.pair_interactions(m.floes, m.domain, sim.consts, sim.dt,
+                                          sim.pair_cap, sim.clip_cap, sim.bins)
+            return res, rows
+
+        got_res, got_rows = both()
+        with monkeypatch.context() as mp:
+            mp.setattr(tcol, "_force_law", tcol._force_law_plain)
+            ref_res, ref_rows = both()
+        for f, x, y in zip(ref_res.floes._fields, got_res.floes, ref_res.floes):
+            assert torch.equal(_bits(x), _bits(y)), (name, f)
+        assert torch.equal(_bits(got_res.stress_instant), _bits(ref_res.stress_instant))
+        for k in ref_rows:
+            assert torch.equal(_bits(got_rows[k]), _bits(ref_rows[k])), (name, k)
+
+
+@pytest.mark.cuda
+def test_cuda_force_law_in_the_graph_and_across_a_restart():
+    """On the 500-floe shear field, f32: run_scan's graph replays equal the
+    eager steps to the bit; the force law is one B4 launch a step (at most
+    three), read by the launch counter, in every captured program; and a run
+    stopped after 10 steps and continued from its state for 10 more ends
+    where 20 steps at once do, to the bit (no float atomics)."""
+    from subzero_tpu_torch.bench import build_sim
+
+    dev = cuda_or_skip()
+    sim = build_sim(500, 1e5, 2e3, device=dev)
+    n = 20
+    forces.reset_launch_count()
+    g, _ = run_scan(dataclasses.replace(sim), n, start_tstep=1)
+    torch.cuda.synchronize()
+    st = g.run_stats["graph"]
+    assert forces.launch_count() == n + st["warmup_launches"]["forces"]
+    per_prog = g._graph.captured_launches("forces")
+    assert per_prog and all(1 <= k <= 3 for k in per_prog.values()), per_prog
+    e, _ = run_scan(dataclasses.replace(sim), n, start_tstep=1, _eager=True)
+    for f, x, y in zip(g.model.floes._fields, g.model.floes, e.model.floes):
+        assert torch.equal(x, y), f
+    half, _ = run_scan(dataclasses.replace(sim), n // 2, start_tstep=1)
+    rest, _ = run_scan(dataclasses.replace(sim, model=half.model), n // 2,
+                       start_tstep=1 + n // 2)
+    for name in ("floes", "ocean"):
+        for f, x, y in zip(getattr(g.model, name)._fields, getattr(rest.model, name),
+                           getattr(g.model, name)):
+            assert torch.equal(x, y), (name, f)
