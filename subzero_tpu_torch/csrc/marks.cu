@@ -8,9 +8,10 @@
 // layer that mark K closes, and stores the new time.  The last mark of a
 // step also counts the step.  Two marks carry the step's work counters:
 // one counts the candidate pairs (the broad phase's valid rows, one byte a
-// row, summed by the block), one reads the number of slow rows from the
-// device; each adds to a sum and to the largest value since the caller last
-// zeroed it.  A mark writes nothing but the accumulator buffer (tracing.py
+// row, summed by the block) and, on the binned broad phase, reads its slot
+// tests and its fullest bin from the device; one reads the number of slow
+// rows from the device.  Each adds to a sum and to the largest value since
+// the caller last zeroed it.  A mark writes nothing but the accumulator buffer (tracing.py
 // lays it out: SLOTS).
 //
 // The kernel is templated on K, so that each mark has its own name in a
@@ -30,8 +31,9 @@ constexpr int kLast = 7;         // the previous mark's time, 0 before any
 constexpr int kSteps = 8;
 constexpr int kPairs = 9;
 constexpr int kSlow = 10;
-constexpr int kPairsMax = 11;
-constexpr int kSlowMax = 12;
+constexpr int kBinTests = 11;
+constexpr int kBinFill = 12;
+constexpr int kMax = 4;          // a counter's largest value: its slot + 4
 
 constexpr int kCountThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
@@ -42,11 +44,17 @@ __device__ __forceinline__ long long global_ns() {
   return static_cast<long long>(t);
 }
 
+// Add ``v`` to counter ``slot`` and keep the largest value.
+__device__ __forceinline__ void count(long long* acc, int slot, long long v) {
+  acc[slot] += v;
+  if (v > acc[slot + kMax]) acc[slot + kMax] = v;
+}
+
 }  // namespace
 
 template <int K>
 __global__ void subzero_mark(long long* acc, const unsigned char* valid, int n,
-                             const long long* n_slow) {
+                             const long long* n_slow, const long long* bins) {
   long long now = 0;
   if (threadIdx.x == 0) now = global_ns();
   long long pairs = 0;
@@ -66,14 +74,11 @@ __global__ void subzero_mark(long long* acc, const unsigned char* valid, int n,
   if (last != 0) acc[K] += now - last;
   acc[kLast] = now;
   if (K == kLayers - 1) acc[kSteps] += 1;
-  if (valid != nullptr) {
-    acc[kPairs] += pairs;
-    if (pairs > acc[kPairsMax]) acc[kPairsMax] = pairs;
-  }
-  if (n_slow != nullptr) {
-    const long long s = *n_slow;
-    acc[kSlow] += s;
-    if (s > acc[kSlowMax]) acc[kSlowMax] = s;
+  if (valid != nullptr) count(acc, kPairs, pairs);
+  if (n_slow != nullptr) count(acc, kSlow, *n_slow);
+  if (bins != nullptr) {
+    count(acc, kBinTests, bins[0]);
+    count(acc, kBinFill, bins[1]);
   }
 }
 
@@ -81,26 +86,29 @@ namespace {
 
 template <int K>
 void launch(long long* acc, const unsigned char* valid, int n,
-            const long long* n_slow, cudaStream_t s) {
+            const long long* n_slow, const long long* bins, cudaStream_t s) {
   const int threads = valid != nullptr ? kCountThreads : 1;
-  subzero_mark<K><<<1, threads, 0, s>>>(acc, valid, n, n_slow);
+  subzero_mark<K><<<1, threads, 0, s>>>(acc, valid, n, n_slow, bins);
 }
 
 }  // namespace
 
 // Mark k (0 .. 6) on the stream: acc is the int64 buffer, valid (n bytes,
-// or null) the candidate rows to count, n_slow (or null) the slow rows.
+// or null) the candidate rows to count, n_slow (or null) the slow rows,
+// bins (2 values, or null) the binned broad phase's slot tests and fullest
+// bin.
 extern "C" int sz_mark(int k, long long* acc, const unsigned char* valid, int n,
-                       const long long* n_slow, void* stream) {
+                       const long long* n_slow, const long long* bins,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 0: launch<0>(acc, valid, n, n_slow, s); break;
-    case 1: launch<1>(acc, valid, n, n_slow, s); break;
-    case 2: launch<2>(acc, valid, n, n_slow, s); break;
-    case 3: launch<3>(acc, valid, n, n_slow, s); break;
-    case 4: launch<4>(acc, valid, n, n_slow, s); break;
-    case 5: launch<5>(acc, valid, n, n_slow, s); break;
-    case 6: launch<6>(acc, valid, n, n_slow, s); break;
+    case 0: launch<0>(acc, valid, n, n_slow, bins, s); break;
+    case 1: launch<1>(acc, valid, n, n_slow, bins, s); break;
+    case 2: launch<2>(acc, valid, n, n_slow, bins, s); break;
+    case 3: launch<3>(acc, valid, n, n_slow, bins, s); break;
+    case 4: launch<4>(acc, valid, n, n_slow, bins, s); break;
+    case 5: launch<5>(acc, valid, n, n_slow, bins, s); break;
+    case 6: launch<6>(acc, valid, n, n_slow, bins, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -60,6 +60,9 @@ class PairArrays(NamedTuple):
     shift: torch.Tensor     # [PC, 2] translation applied to Q (periodic image)
     valid: torch.Tensor     # [PC]
     overflow: torch.Tensor  # [] bool: more candidates than capacity
+    # [2] int64 of the binned broad phase (None on the dense one): the slot
+    # tests it made and its fullest bin's floes (``_bin_counts``)
+    bin_counts: torch.Tensor | None = None
 
 
 def _sq(x):
@@ -343,6 +346,7 @@ def _find_candidate_pairs_binned(
         ny_idx = torch.clamp(ny_idx, 0, nby - 1)
     nb_id = nx_idx * nby + ny_idx                                # [N, NK]
     nb_ok = nx_ok & ny_ok
+    bin_counts = _bin_counts(counts, M, nb_id, nb_ok, act)
 
     # candidates: the members of the neighbour bins, gathered directly
     jg = jt[nb_id]                                               # [N, NK, M]
@@ -434,7 +438,19 @@ def _find_candidate_pairs_binned(
         shift=torch.cat([shift, eshift], dim=0),
         valid=torch.cat([valid.reshape(-1), evalid]),
         overflow=overflow,
+        bin_counts=bin_counts,
     )
+
+
+def _bin_counts(counts, M: int, nb_id, nb_ok, act):
+    """The binned broad phase's work counters, [2] int64 on the device:
+    the slot tests of the step (each live floe against the occupied slots,
+    at most M a bin, of each of its neighbour bins, itself among them) and
+    the floes in the fullest bin (past M: the bins overflowed)."""
+    occupied = torch.clamp(counts, max=M)[nb_id]                  # [N, NK]
+    live = nb_ok & act[:, None]
+    tests = torch.where(live, occupied, 0).sum()
+    return torch.stack([tests, counts.max()])
 
 
 class _PairSides(NamedTuple):
@@ -983,8 +999,9 @@ def timestep_collisions(
     ``n_parity_bad`` (before the retry) and ``clip_overflow`` (after it).
     Returns ``(result, dbg)`` then.  ``mark``: the step's layer marks
     (``tracing.Marks``), called after the broad phase (with the candidate
-    rows to count), after the narrow phase and the slow clip (with the
-    slow rows) and after the force law; None marks nothing."""
+    rows to count, and the binned broad phase's counters), after the narrow
+    phase and the slow clip (with the slow rows) and after the force law;
+    None marks nothing."""
     N = floes.capacity
     NR = N if owned_rows is None else owned_rows
     V = floes.max_verts
@@ -1017,7 +1034,8 @@ def timestep_collisions(
     pvalid0 = pairs.valid
     R0 = NR * row_cap0
     if mark is not None:
-        mark(1, pairs=pvalid0)
+        mark(1, pairs=pvalid0, bins=pairs.bin_counts,
+             bin_cap=0 if bins is None else bins[2])
     # the narrow phase zeroes the rows that are not candidates (cnt 0, ok
     # False, contain 0), so nothing here masks them again
     tc = two_cross_dispatch(*nb.two_cross_args())

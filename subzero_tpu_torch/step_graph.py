@@ -38,7 +38,8 @@ layers between, inside the capture.  Their buffer holds the step's flags
 and overflow count too, so ``marks.read``, the one host read of a call
 (``run_scan``) or of a step (``run``), brings every counter with it;
 ``stats`` gives what it last read (seconds by layer, steps marked, candidate
-pairs and slow rows, cumulative; the counters' maxima since the call's
+pairs, slow rows and the binned broad phase's slot tests and fullest bins,
+cumulative; the counters' maxima since the call's
 ``marks.begin_call``) and the graph's own host spans.
 
 A Simulation keeps its StepGraph (``Simulation.step_graph``), so a later

@@ -27,9 +27,13 @@ replays and between calls, and between the two halves of a split step.  On
 the CPU the same marks read ``time.perf_counter_ns()`` (the step is
 synchronous there).
 
-Mark 1 also counts the candidate pairs (the broad phase's valid rows) and
-mark 2 reads the slow rows (``n_slow``): each adds to a sum and to the
-largest value since ``begin_call`` zeroed it.  Everything sits in one small
+Mark 1 also counts the candidate pairs (the broad phase's valid rows) and,
+on the binned broad phase, reads its two counts (``bins``: the slot tests
+of the step, each live floe against the occupied slots of its neighbour
+bins, and the fullest bin's floes, beside the bins' capacity M); mark 2
+reads the slow rows (``n_slow``): each adds to a sum and to the largest
+value since ``begin_call`` zeroed it.  The dense broad phase hands mark 1
+no bin counts, and those counters stay 0.  Everything sits in one small
 buffer on the pool's device, beside the step's flags (fuse marked,
 overflow) and its overflow count, so it reaches the host only in the reads
 that the run loops make anyway (``read``; ``stats`` gives what it read).
@@ -61,15 +65,17 @@ LAYERS = ("gap", "broad", "clip", "force", "sums", "couple", "integrate")
 MARK_STEP = len(LAYERS) - 1    # the mark that closes a step
 
 # int64 slots of the marks' buffer (csrc/marks.cu): nanoseconds by layer
-# (0-6), then these
-SLOTS = {"last": 7, "steps": 8, "pairs": 9, "slow_rows": 10, "pairs_max": 11,
-         "slow_rows_max": 12, "n_over": 13}
-N_SLOTS = 14
+# (0-6), then these: each counter's sum, then each one's largest value
+SLOTS = {"last": 7, "steps": 8, "pairs": 9, "slow_rows": 10, "bin_tests": 11,
+         "bin_fill": 12, "pairs_max": 13, "slow_rows_max": 14, "bin_tests_max": 15,
+         "bin_fill_max": 16, "n_over": 17}
+N_SLOTS = 18
+COUNTERS = ("pairs", "slow_rows", "bin_tests", "bin_fill")
 N_FLAGS = 2    # bool, after the int64 slots: fuse marked, overflow
 # what ``Marks.stats`` gives of one call, not counts to take differences of:
-# the counters' maxima since ``begin_call``, and the rows they are measured
-# against
-GAUGES = ("pairs_max", "slow_rows_max", "pair_rows", "slow_cap")
+# the counters' maxima since ``begin_call``, and the rows, slow rows and
+# bin slots they are measured against
+GAUGES = (*(name + "_max" for name in COUNTERS), "pair_rows", "slow_cap", "bin_cap")
 # the slots that ``begin_call`` zeroes: the maxima and the overflow count
 _CALL = slice(SLOTS["pairs_max"], SLOTS["n_over"] + 1)
 
@@ -89,8 +95,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
         p, i = ctypes.c_void_p, ctypes.c_int
-        # k acc valid n n_slow stream
-        lib.sz_mark.argtypes = [i, p, p, i, p, p]
+        # k acc valid n n_slow bins stream
+        lib.sz_mark.argtypes = [i, p, p, i, p, p, p]
         lib.sz_mark.restype = ctypes.c_int
         lib.sz_cuda_error_string.argtypes = [i]
         lib.sz_cuda_error_string.restype = ctypes.c_char_p
@@ -115,6 +121,7 @@ class Marks:
         self.on = True
         self.pair_rows = 0
         self.slow_cap = 0
+        self.bin_cap = 0
         self._card = self.device.type == "cuda"
         # the buffer as the host sees it: a pinned copy that ``read`` fills
         # on the card; on the CPU the buffer itself, which the marks write
@@ -127,18 +134,23 @@ class Marks:
         self._zeros = torch.zeros(_CALL.stop - _CALL.start, dtype=torch.int64,
                                   pin_memory=self._card)
 
-    def __call__(self, k: int, pairs=None, slow=None, slow_cap: int = 0) -> None:
+    def __call__(self, k: int, pairs=None, slow=None, slow_cap: int = 0,
+                 bins=None, bin_cap: int = 0) -> None:
         """Mark ``k``.  ``pairs``: the candidate rows' validity (bool) to
         count; ``slow``: the number of slow rows (a 0-d int64 tensor) of a
-        clip with ``slow_cap`` rows."""
+        clip with ``slow_cap`` rows; ``bins``: the binned broad phase's
+        slot tests and fullest bin (a [2] int64 tensor) over bins of
+        ``bin_cap`` slots."""
         if not self.on:
             return
         if pairs is not None:
             self.pair_rows = pairs.shape[0]
         if slow is not None:
             self.slow_cap = slow_cap
+        if bins is not None:
+            self.bin_cap = bin_cap
         if self._card:
-            self._launch(k, pairs, slow)
+            self._launch(k, pairs, slow, bins)
             return
         h = self._host_slots
         now = time.perf_counter_ns()
@@ -152,6 +164,9 @@ class Marks:
             self._count("pairs", pairs.sum())
         if slow is not None:
             self._count("slow_rows", slow)
+        if bins is not None:
+            self._count("bin_tests", bins[0])
+            self._count("bin_fill", bins[1])
 
     def _count(self, name: str, value) -> None:
         """Add ``value`` to a counter and its maximum, by torch ops, so that
@@ -160,7 +175,7 @@ class Marks:
         acc[SLOTS[name]] += value
         acc[top] = torch.maximum(acc[top], value)
 
-    def _launch(self, k, pairs, slow) -> None:
+    def _launch(self, k, pairs, slow, bins) -> None:
         lib = _load()
         valid, n = None, 0
         if pairs is not None:
@@ -172,7 +187,13 @@ class Marks:
             if slow.dtype != torch.int64 or slow.dim() != 0:
                 raise ValueError("a mark reads a 0-d int64 count of slow rows")
             n_slow = slow.data_ptr()
-        rc = lib.sz_mark(k, self.acc.data_ptr(), valid, n, n_slow,
+        bin_counts = None
+        if bins is not None:
+            if bins.dtype != torch.int64 or bins.shape != (2,) or not bins.is_contiguous():
+                raise ValueError("a mark reads the bins' two counts as a contiguous "
+                                 "[2] int64 tensor")
+            bin_counts = bins.data_ptr()
+        rc = lib.sz_mark(k, self.acc.data_ptr(), valid, n, n_slow, bin_counts,
                          torch.cuda.current_stream(self.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"mark {k} launch failed: "
@@ -195,16 +216,16 @@ class Marks:
         return self._host_flags.tolist(), int(self._host_slots[SLOTS["n_over"]])
 
     def stats(self) -> dict:
-        """The numbers of the last ``read``: seconds by layer, steps marked,
-        candidate pairs and slow rows, cumulative; and the ``GAUGES``."""
+        """The numbers of the last ``read``: seconds by layer, steps marked
+        and the ``COUNTERS`` (candidate pairs, slow rows, bin slot tests,
+        fullest bins), cumulative; and the ``GAUGES``."""
         s = self._host_slots.tolist()
         return {"layer_s": {name: 1e-9 * s[k] for k, name in enumerate(LAYERS)},
                 "steps_marked": s[SLOTS["steps"]],
-                "pairs": s[SLOTS["pairs"]],
-                "slow_rows": s[SLOTS["slow_rows"]],
-                "pairs_max": s[SLOTS["pairs_max"]],
-                "slow_rows_max": s[SLOTS["slow_rows_max"]],
-                "pair_rows": self.pair_rows, "slow_cap": self.slow_cap}
+                **{name: s[SLOTS[name]] for name in COUNTERS},
+                **{name + "_max": s[SLOTS[name + "_max"]] for name in COUNTERS},
+                "pair_rows": self.pair_rows, "slow_cap": self.slow_cap,
+                "bin_cap": self.bin_cap}
 
 
 # ---------------------------------------------------------------------------

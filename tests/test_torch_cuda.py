@@ -5,8 +5,9 @@ the kernel and agrees with the CPU run, the step's CUDA graph against the
 eager step (bitwise) and a capture that fails (it raises), ``pair_overlaps``
 on the card against the CPU, a 20-step ``run`` with a fracture pass, the
 JAX package's f32 conservation gate (5 000 steps of head_on and
-three_floes), and the force law's kernel (B4) against the plain force law,
-in the step, its graph, ``pair_interactions`` and a restart, to the bit.
+three_floes), the force law's kernel (B4) against the plain force law,
+in the step, its graph, ``pair_interactions`` and a restart, to the bit,
+and the binned broad phase's counters in the graph against the CPU's.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs on a machine that has none, without the JAX-side
@@ -631,6 +632,26 @@ def test_cuda_layer_marks_in_the_graph():
         traced = 1e-9 * sum(b - a for a, b in zip(last[k - 1], last[k]))
         assert marked["layer_s"][layer] == pytest.approx(traced, rel=0.25), (
             layer, marked["layer_s"], traced)
+
+
+@pytest.mark.cuda
+def test_cuda_bin_counters_equal_the_cpus():
+    """The binned broad phase's counters (``collisions._bin_counts``, read
+    by mark 1 inside the graph) on the card equal the CPU's on the same
+    field and state: the 300-floe shear field with explicit bins, f64, one
+    ``run_scan`` call of three steps from the same initial state."""
+    from subzero_tpu_torch.bench import build_sim
+
+    dev = cuda_or_skip()
+    stats = {}
+    for d in ("cpu", dev):
+        sim = build_sim(300, 1e5, 4e3, device=d, dtype=torch.float64, bins=True)
+        run_scan(sim, 3, start_tstep=1)
+        stats[d] = sim.run_stats["graph"]
+    for k in ("steps_marked", "pairs", "bin_tests", "bin_fill", "bin_tests_max",
+              "bin_fill_max", "bin_cap"):
+        assert stats[dev][k] == stats["cpu"][k], k
+    assert stats["cpu"]["bin_tests"] > 0 and stats["cpu"]["bin_cap"] > 0
 
 
 # ---------------------------------------------------------------------------
