@@ -79,14 +79,21 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             bound; and where a row's time goes: the clocked build's SM
             cycles by phase of the row's chain (median and 90th percentile
             over the live rows; bench adds the 16k and 32k batches)
+  cell_clip the coupling's cell clip (B6) against its plain version on the
+            card, f32, bitwise, on the coupling windows of shear_flow_500
+            (cell_cap 19) and a 16 000-floe field (cell_cap 21) after 20
+            steps, its count of the cells it clipped against the mask's; its
+            own device time, queued, the plain version's, and the bound from
+            the batch's bytes and operations
   graph     the step as a CUDA graph (step_graph.StepGraph, which
             run_scan, run and the bench replay on the card) against the same
             steps launched eagerly: one eager step of each program
             under torch.cuda.set_sync_debug_mode("error"); shear_flow_500
             (200 steps) and many_floes_8000 binned (50) through run_scan and
             the life-cycle run (601 steps of run, the lifecycle phase's) all
-            bitwise equal in f32, one B1 and one B2 launch a step each
-            side, held against the card's own count under replay; host
+            bitwise equal in f32, one B1, one B2 and one B4 launch a step
+            each side and one B6 launch on each coupled step (none on the
+            others), held against the card's own count under replay; host
             synchronisations between run_scan's first and last step (none)
             and over the life-cycle run's first 100 steps by source line
             (none from the step's body), graph and eager; torch.profiler's
@@ -175,6 +182,12 @@ Phases (one JSON line each; any failure raises and the exit code is not 0):
             the port's tool as 4 gloo ranks: the JAX tool's fracture-on
             field at 1 and 4 ranks, the rows the host passes are handed and
             the passes' count and mean time
+  memory_by_seed  (only when named) the benchmark's field_16k.scan cell as
+            benchmark/run.py builds it, for each of MEMORY_SEEDS: the seed's
+            bins and sub-floe points a floe, the transient peak (allocated) of an eager broad phase and
+            of an eager coupling, then the graphs' capture pools, the
+            allocated and reserved peaks after the warm-up and after one
+            pass of run_scan calls (device_mem_gib reads the reserved one)
 
 Then a line with each phase's seconds, a {"kernels": [...]} line, the
 nvidia-smi name/power-limit line, and
@@ -219,11 +232,11 @@ import torch
 
 PHASES = ("build", "kernel", "slice", "card_cpu", "determinism",
           "many_floes_2000", "binned", "overlaps", "lifecycle", "regions", "forces",
-          "graph",
+          "cell_clip", "graph",
           "lifecycle_card_cpu", "writers", "restart", "bench", "f32_drift",
           "decomp")
 EXTRA_PHASES = ("profile", "e2e_shear_flow", "lifecycle_walltime", "overflow_source",
-                "scaling", "lifecycle_overhead")
+                "scaling", "lifecycle_overhead", "memory_by_seed")
 SEED = 1
 LIFECYCLE_N_DT = 600   # the life-cycle runs of examples/many_floes.py: steps 0..600
 
@@ -1001,6 +1014,85 @@ def phase_forces(dev, report):
     emit("forces", dtype="float32", **out)
 
 
+# ---------------------------------------------------------------------------
+# the coupling's cell clip (B6) on the coupling windows
+# ---------------------------------------------------------------------------
+
+# torch.profiler's name of B6's device function holds this
+B6_EVENT = "cell_clip_kernel"
+# field: (floes, box side, binned broad phase, cell_cap as the benchmark's
+# cells run them: shear_flow's 19, field_16k's 21)
+B6_FIELDS = {"shear_flow_500": (500, 1e5, False, 19),
+             "field_16k": (16000, 5.66e5, True, 21)}
+
+
+def phase_cell_clip(dev, report):
+    """The coupling's cell clip (B6) against its plain version on the card,
+    f32, to the bit, on the coupling windows of shear_flow_500 and a 16 000-
+    floe field (binned) after 20 steps: one launch a call, its count of the
+    cells it clipped equal to the window mask's; its own device time from
+    whole traces (torch.profiler), queued, the plain version's time (the
+    ~120 kernels it replaces) and device operations, and the bound from
+    these inputs' bytes and operations (benchmark/roofline/cell_clip.py,
+    the b6_roofline metric's count)."""
+    from benchmark.roofline import cell_clip as b6_count
+    from subzero_tpu_torch.physics import cell_clip
+    from subzero_tpu_torch.physics import coupling as C
+    from subzero_tpu_torch.simulation import run_scan
+
+    out = {}
+    for name, (n, L, bins, cap) in B6_FIELDS.items():
+        sim = dataclasses.replace(build_sim(n, L, 2e3, device=dev, dtype=torch.float32,
+                                            bins=bins), cell_cap=cap)
+        sim, _ = run_scan(sim, 20)
+        m = sim.model
+        args = C.window_inputs(m.floes, m.grid, m.domain, cap)
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        l0 = cell_clip.launch_count()
+        got = C._cell_areas(*args, count)
+        ref = C._cell_areas_plain(*args)
+        torch.cuda.synchronize()
+        if cell_clip.launch_count() != l0 + 1:
+            raise AssertionError(f"{name}: B6 counted {cell_clip.launch_count() - l0} "
+                                 "launches in one call")
+        if not torch.equal(bits_of(got), bits_of(ref)):
+            raise AssertionError(f"{name}: B6 and the plain cell clip differ, largest "
+                                 f"by {float((got - ref).abs().max())}")
+        okx, oky = args[6], args[7]
+        kept = (okx[:, :, None] & oky[:, None, :]).sum((1, 2))
+        if int(count) != int(kept.sum()) or int(count) == 0:
+            raise AssertionError(f"{name}: B6 counted {int(count)} cells, the mask "
+                                 f"keeps {int(kept.sum())}")
+        del got, ref
+        launch_args = cell_clip.prepare(*args)
+
+        def launch():
+            cell_clip.launch(launch_args[0], torch.float32)
+
+        def plain():
+            C._cell_areas_plain(*args)
+
+        N, A, B = okx.shape[0], okx.shape[1], oky.shape[1]
+        c = b6_count.bound({"N": N, "A": A, "B": B, "elt": 4,
+                            "nverts": args[1].cpu().numpy(), "kept": kept.cpu().numpy()},
+                           {"bytes_per_s": H100_BYTES_PER_S,
+                            "f32_ops_per_s": H100_F32_OPS_PER_S})
+        out[name] = {
+            "floes": N, "cell_cap": cap, "kept_cells": int(count),
+            "floes_with_kept_cells": c["live_rows"], "bitwise_equal_plain": True,
+            "device_ms": profiled_kernel_ms(launch, B6_EVENT),
+            "queued_ms": queued_ms(launch),
+            "plain_ms": median_ms(plain, reps=10, warmup=2),
+            "plain_device_ops": plain_device_ops(plain),
+            "bound_ms": 1e3 * c["bound_s"], "bound_by": c["bound_by"],
+            "bytes": c["bytes"], "operations": c["operations"],
+        }
+        del sim, m, args, launch_args
+        torch.cuda.empty_cache()
+    report["cell_clip_timing"] = out
+    emit("cell_clip", dtype="float32", **out)
+
+
 def bits_of(x):
     """A tensor's bits: floats as the integers of their width."""
     x = x.contiguous()
@@ -1276,7 +1368,8 @@ def replay_from(sim, n_steps, **kw):
 
 # the names of each kernel's device functions, as torch.profiler lists them
 KERNEL_EVENTS = {"two_cross": ("two_cross_kernel", "two_cross_wide_kernel"),
-                 "regions": ("regions_kernel",), "forces": ("forces_kernel",)}
+                 "regions": ("regions_kernel",), "forces": ("forces_kernel",),
+                 "cell_clip": ("cell_clip_kernel",)}
 
 
 def runs_under_replay(fn, n_expected, tries=3, kernel="two_cross") -> int:
@@ -2023,6 +2116,8 @@ def graph_against_eager(sim, name) -> dict:
            "captures": graph.stats["captures"],
            "capture_pool_gib": {"/".join(map(str, p)): b / 2**30
                                 for p, b in graph.capture_pool_bytes.items()}}
+    # B6: one launch on each coupled step, none on the others
+    n_coupled = sum(graph.couples(t) for t in range(n))
     ends = {}
     for how in ("graph", "eager"):
         reset_launches()
@@ -2034,10 +2129,13 @@ def graph_against_eager(sim, name) -> dict:
         torch.cuda.synchronize()
         out[f"{how}_step_ms"] = 1e3 * (time.perf_counter() - t0) / n
         if (path_launches() != n or path_launches("regions") != b2_per_step() * n
-                or path_launches("forces") != n):
+                or path_launches("forces") != n
+                or path_launches("cell_clip") != n_coupled):
             raise AssertionError(f"{name} ({how}): {path_launches()} (B1), "
-                                 f"{path_launches('regions')} (B2) and "
-                                 f"{path_launches('forces')} (B4) launches in {n} steps")
+                                 f"{path_launches('regions')} (B2), "
+                                 f"{path_launches('forces')} (B4) and "
+                                 f"{path_launches('cell_clip')} (B6) launches in {n} "
+                                 f"steps, {n_coupled} of them coupled")
         ends[how] = end
     same_state(ends["graph"], ends["eager"], f"{name}: graph against eager")
     if not torch.equal(ends["graph"].domain.vals, ends["eager"].domain.vals):
@@ -2047,6 +2145,8 @@ def graph_against_eager(sim, name) -> dict:
         lambda: replay_from(sim, n), b2_per_step() * n, kernel="regions")
     out["force_law_runs_on_the_card"] = runs_under_replay(
         lambda: replay_from(sim, n), n, kernel="forces")
+    out["cell_clip_runs_on_the_card"] = runs_under_replay(
+        lambda: replay_from(sim, n), n_coupled, kernel="cell_clip")
     if graph.stats["captures"] != out["captures"]:
         raise AssertionError(f"{name}: run_scan captured again: {graph.stats}")
     out.update(bitwise_equal=True, kernel_launches_per_step=1,
@@ -2054,7 +2154,9 @@ def graph_against_eager(sim, name) -> dict:
                recaptures=graph.stats["recaptures"],
                kernel_runs_per_replay=runs_per_replay(graph),
                slow_clip_runs_per_replay=runs_per_replay(graph, "regions"),
-               force_law_runs_per_replay=runs_per_replay(graph, "forces"))
+               force_law_runs_per_replay=runs_per_replay(graph, "forces"),
+               coupled_steps=n_coupled,
+               cell_clip_runs_per_replay=runs_per_replay(graph, "cell_clip"))
     return out
 
 
@@ -2086,25 +2188,16 @@ def launch_profile(fn, n) -> dict:
 
 
 def coupling_clip_widths_card(sim) -> dict:
-    """The coupling's cell clip on 16 vertex slots against the full width,
-    on the card (the step takes the full width; the JAX package picks 16
+    """The coupling's cell clip (B6 on the card) on 16 vertex slots against
+    the full width (the step takes the full width; the JAX package picks 16
     slots by a lax.cond when every ring fits)."""
     from subzero_tpu_torch.physics import coupling as C
 
-    f, g, d = sim.model.floes, sim.model.grid, sim.model.domain
-    cap = sim.cell_cap
-    cx0 = torch.floor((f.centroid[:, 0] - g.x0) / g.dx + 0.5).long()
-    cy0 = torch.floor((f.centroid[:, 1] - g.y0) / g.dy + 0.5).long()
-    offs = torch.arange(cap, device=f.verts.device) - cap // 2
-    seen, clip = [], C._clip_area_to_rects
-    C._clip_area_to_rects = lambda v, n, *r: seen.append(r) or clip(v, n, *r)
-    try:
-        C._floe_cell_areas(f, g, d, cap, cx0, cy0, offs)
-    finally:
-        C._clip_area_to_rects = clip
-    full = clip(f.verts, f.nverts, *seen[0])
-    narrow = clip(f.verts[:, :16], f.nverts, *seen[0])
-    return {"largest_ring": int(f.nverts.max()), "bitwise_equal": torch.equal(full, narrow),
+    m = sim.model
+    verts, nverts, *rects = C.window_inputs(m.floes, m.grid, m.domain, sim.cell_cap)
+    full = C._cell_areas(verts, nverts, *rects)
+    narrow = C._cell_areas(verts[:, :16], nverts, *rects)
+    return {"largest_ring": int(nverts.max()), "bitwise_equal": torch.equal(full, narrow),
             "max_abs_diff": float((full - narrow).abs().max())}
 
 
@@ -2133,6 +2226,11 @@ def phase_graph(dev, report):
                 out[name]["slow_clip_runs_on_the_card"])
         report.setdefault("b2_runs_on_the_card", {})[
             f"{name}'s programs, one replay each"] = out[name]["slow_clip_runs_per_replay"]
+        report.setdefault("b6_launches_by_path", {})[
+            f"run_scan step, graph replay (graph, {name})"] = \
+            out[name]["cell_clip_runs_on_the_card"]
+        report.setdefault("b6_runs_on_the_card", {})[
+            f"{name}'s programs, one replay each"] = out[name]["cell_clip_runs_per_replay"]
         if name == "shear_flow_500":
             # between run_scan's first and last step nothing is read: the one
             # read is the marks' buffer's (n_overflow with the counters),
@@ -2192,13 +2290,17 @@ def phase_graph(dev, report):
                              f"{fresh.step_graph().captured_launches()} vs {progs}")
     per_replay = runs_per_replay(fresh.step_graph())
     b2_per_replay = runs_per_replay(fresh.step_graph(), "regions")
+    b6_per_replay = runs_per_replay(fresh.step_graph(), "cell_clip")
     del fresh
     report["runs_on_the_card"]["life-cycle run's programs, one replay each"] = per_replay
     report.setdefault("b2_runs_on_the_card", {})[
         "life-cycle run's programs, one replay each"] = b2_per_replay
+    report.setdefault("b6_runs_on_the_card", {})[
+        "life-cycle run's programs, one replay each"] = b6_per_replay
     life = {"steps": st["steps"], "bitwise_equal": True, "segments": st["segments"],
             "kernel_runs_per_replay": per_replay,
             "slow_clip_runs_per_replay": b2_per_replay,
+            "cell_clip_runs_per_replay": b6_per_replay,
             "host_pass_count": st["host_pass_count"], "n_overflow": g.n_overflow,
             "graph": st["graph"], "graph_seconds": st["seconds"],
             "eager_seconds": eager_s}
@@ -3859,6 +3961,78 @@ def phase_lifecycle_overhead(dev, report):
                                            for f in figs])
 
 
+# seeds of the size the benchmark's runs take: large, some past 2**31
+MEMORY_SEEDS = (2147517027, 2147483922, 1363216564, 2147483959, 3000000017, 77)
+
+
+def transient_gib(fn) -> float:
+    """The most ``fn`` allocated on the card beyond what was allocated
+    before it (its outputs dropped), GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_memory_by_seed(dev, report):
+    """What field_16k.scan's device memory (device_mem_gib: the reserved
+    peak over set-up and window) is made of, seed by seed: the benchmark's
+    own build of the cell (benchmark.harness), the seed's bins (nbx, nby,
+    M), pool and sub-floe points a floe (the largest floe's count), the
+    transient peaks of an eager broad phase (the step's narrow-phase
+    batch) and of an eager coupling at the start state, each program's
+    capture pool, and the allocated and reserved peaks after the warm-up and
+    after one pass of the cell's calls."""
+    from benchmark import harness
+    from benchmark.inputs import make_inputs
+    from subzero_tpu_torch.physics import collisions
+    from subzero_tpu_torch.physics import coupling as C
+
+    gib = 2**30
+    cell = harness.load_cell("field_16k.scan")
+    port = harness.port_package()
+    out = []
+    for seed in MEMORY_SEEDS:
+        harness.free()
+        torch.cuda.reset_peak_memory_stats()
+        sim = harness.build_program(cell, make_inputs(cell.cfg, seed), dev)
+        m = sim.model
+        row = {"seed": seed, "bins": list(sim.bins) if sim.bins else None,
+               "pool": int(m.floes.capacity),
+               "points_per_floe": int(m.floes.sub_x.shape[1]),
+               "state_gib": torch.cuda.memory_allocated() / gib}
+        row["broad_phase_transient_gib"] = transient_gib(
+            lambda: collisions.narrow_phase_batch(m.floes, m.domain, sim.pair_cap,
+                                                  sim.bins))
+        row["coupling_transient_gib"] = transient_gib(
+            lambda: C.timestep_coupling(m.floes, m.grid, m.domain, m.ocean, m.atmos,
+                                        sim.consts, sim.coupling_settings,
+                                        sim.floe_settings, sim.dt, sim.cell_cap))
+        harness.free()
+        torch.cuda.reset_peak_memory_stats()
+        driver = harness.Driver(sim, cell, port.simulation)
+        harness.warm_up(driver)
+        torch.cuda.synchronize()
+        row.update(
+            capture_pool_gib={"/".join(map(str, p)): b / gib
+                              for p, b in sim._graph.capture_pool_bytes.items()},
+            warm_up_allocated_peak_gib=torch.cuda.max_memory_allocated() / gib,
+            warm_up_reserved_peak_gib=torch.cuda.max_memory_reserved() / gib)
+        for k in range(cell.calls_per_pass):
+            driver.call(k)
+        torch.cuda.synchronize()
+        row.update(pass_allocated_peak_gib=torch.cuda.max_memory_allocated() / gib,
+                   pass_reserved_peak_gib=torch.cuda.max_memory_reserved() / gib)
+        out.append(row)
+        emit("memory_by_seed_row", **row)
+        sim._graph = None
+        del sim, m, driver
+    harness.free()
+    emit("memory_by_seed", cell="field_16k.scan", rows=out)
+
+
 def step_ms(sim, n_steps) -> float:
     from subzero_tpu_torch.simulation import run_scan
 
@@ -4008,7 +4182,8 @@ def main(argv=None) -> int:
         "determinism": lambda d, r: phase_determinism(d),
         "many_floes_2000": phase_many_floes, "binned": phase_binned,
         "overlaps": phase_overlaps, "lifecycle": phase_lifecycle,
-        "regions": phase_regions, "forces": phase_forces, "graph": phase_graph,
+        "regions": phase_regions, "forces": phase_forces, "cell_clip": phase_cell_clip,
+        "graph": phase_graph,
         "lifecycle_card_cpu": phase_lifecycle_card_cpu, "writers": phase_writers,
         "restart": phase_restart, "bench": phase_bench, "f32_drift": phase_f32_drift,
         "decomp": lambda d, r: (torch.cuda.empty_cache(), phase_decomp(d, r)),
@@ -4017,6 +4192,7 @@ def main(argv=None) -> int:
         "lifecycle_walltime": phase_lifecycle_walltime,
         "overflow_source": phase_overflow_source, "scaling": phase_scaling,
         "lifecycle_overhead": phase_lifecycle_overhead,
+        "memory_by_seed": phase_memory_by_seed,
     }
     seconds = {}
     for name in PHASES + EXTRA_PHASES:
@@ -4043,6 +4219,7 @@ def main(argv=None) -> int:
     t = report.get("timing", {})
     t2 = report.get("regions_timing", {})
     t4 = report.get("forces_timing", {})
+    t6 = report.get("cell_clip_timing", {}).get("field_16k", {})
     print(json.dumps({"kernels": [{
         "name": "two_cross",
         "route": "cuda",
@@ -4114,6 +4291,26 @@ def main(argv=None) -> int:
         "library_ms": None,  # no one PyTorch call computes this function
         **{k: t4.get(k) for k in ("queued_ms", "empty_device_ms", "plain_device_ops",
                                   "items", "bytes")},
+    }, {
+        # the coupling's cell clip at field_16k's coupling windows after 20
+        # steps (the cell_clip phase): ms is its kernel's own device time,
+        # one launch on each coupled step; by_field holds shear_flow_500's too
+        "name": "cell_clip",
+        "route": "cuda",
+        "source": "subzero_tpu_torch/csrc/cell_clip.cu",
+        "replaces": "subzero_tpu/physics/coupling.py:_clip_area_to_rects (jnp, fused "
+                    "by XLA)",
+        "launches_by_path": report.get("b6_launches_by_path", {}),
+        "graph_warmup_launches": step_graph.warmup_launch_count("cell_clip"),
+        "runs_on_the_card_by_replay": report.get("b6_runs_on_the_card", {}),
+        "ms": t6.get("device_ms"),
+        "plain_ms": t6.get("plain_ms"),
+        "bound_ms": t6.get("bound_ms"),
+        "bound_by": t6.get("bound_by"),
+        "library_ms": None,  # no one PyTorch call computes this function
+        **{k: t6.get(k) for k in ("queued_ms", "plain_device_ops", "kept_cells",
+                                  "bytes", "operations")},
+        "by_field": report.get("cell_clip_timing", {}),
     }]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ constexpr int kSlow = 10;
 constexpr int kBinTests = 11;
 constexpr int kBinFill = 12;
 constexpr int kMax = 4;          // a counter's largest value: its slot + 4
+// slot 17 is the step's overflow count, slot 18 the window cells that the
+// coupling's cell clip (cell_clip.cu) adds to itself: no mark writes them
 
 constexpr int kCountThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;

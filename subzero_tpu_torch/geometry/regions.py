@@ -40,13 +40,16 @@ import torch
 from . import two_cross
 from .clip import ClipRegions, first_true, intersect_regions
 
-# the force law's kernel (B4, physics/forces.py) is built into this library,
-# so that every build of the slow clip builds it too
+# the force law's kernel (B4, physics/forces.py) and the coupling's cell
+# clip (B6, physics/cell_clip.py) are built into this library, so that
+# every build of the slow clip builds them too
 SOURCES = (two_cross.CSRC_DIR / "intersect_regions.cu",
            two_cross.CSRC_DIR / "intersect_regions.cuh",
            two_cross.CSRC_DIR / "two_cross.cuh",
            two_cross.CSRC_DIR / "forces.cu",
-           two_cross.CSRC_DIR / "forces.cuh")
+           two_cross.CSRC_DIR / "forces.cuh",
+           two_cross.CSRC_DIR / "cell_clip.cu",
+           two_cross.CSRC_DIR / "cell_clip.cuh")
 MAX_CAP = 64     # crossings a row keeps: two a lane
 MAX_VERTS = two_cross.MAX_VERTS  # the widest ring, as the narrow phase's
 # the retry's perturbation: the first one flipped and scaled
@@ -63,30 +66,13 @@ CLOCK_PHASES = ("gather", "crossing_sweep", "prefix_sums", "ranks_and_next",
 
 _lib = None
 _clock_lib = None
-_launches = 0
-_captured = 0
 
 
-def launch_count() -> int:
-    """Number of kernel launches since the last reset (one a call)."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
-
-
-def captured_count() -> int:
-    """Number of launches recorded into CUDA graphs.  Never reset."""
-    return _captured
-
-
-def add_replayed(n: int) -> None:
-    """Count ``n`` launches made by the replay of a CUDA graph that
-    captured them (step_graph.py)."""
-    global _launches
-    _launches += n
+_counter = two_cross.LaunchCounter()
+launch_count = _counter.launch_count
+reset_launch_count = _counter.reset_launch_count
+captured_count = _counter.captured_count
+add_replayed = _counter.add_replayed
 
 
 def build(force: bool = False) -> dict:
@@ -250,7 +236,6 @@ def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
     """The clip, and the retry where ``retry_rows`` > 0, on checked inputs
     into a buffer from ``alloc_output``: one launch, counted (under a CUDA
     graph's capture, counted as captured)."""
-    global _launches, _captured
     R, dtype, dev = ssel.shape[0], p_verts.dtype, p_verts.device
     if R == 0:
         return
@@ -267,10 +252,7 @@ def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     two_cross._raise_if(lib, rc, "slow clip kernel")
-    if torch.cuda.is_current_stream_capturing():
-        _captured += 1
-    else:
-        _launches += 1
+    _counter.count()
 
 
 def regions_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb, ssel,

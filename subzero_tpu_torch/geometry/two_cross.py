@@ -44,31 +44,47 @@ MAX_VERTS = 128
 OUT_FLOATS = 10  # contain, area, centroid, chord_a, chord_b, p_norm of a row
 
 _lib = None
-_launches = 0
-_captured = 0
 
 
-def launch_count() -> int:
-    """Number of kernel launches since the last reset."""
-    return _launches
+class LaunchCounter:
+    """A kernel's launches as its wrapper counts them: ``count`` after each
+    launch (under a CUDA graph's capture the launch is recorded, not run,
+    and counted as captured), ``add_replayed`` for a graph's replay.  A
+    kernel's module exposes the bound methods (step_graph.KERNELS)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.captured = 0
+
+    def count(self) -> None:
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+
+    def launch_count(self) -> int:
+        """Number of kernel launches since the last reset."""
+        return self.launches
+
+    def reset_launch_count(self) -> None:
+        self.launches = 0
+
+    def captured_count(self) -> int:
+        """Number of launches recorded into CUDA graphs (not run then: a
+        graph launches them at each replay).  Never reset."""
+        return self.captured
+
+    def add_replayed(self, n: int) -> None:
+        """Count ``n`` launches made by the replay of a CUDA graph that
+        captured them (step_graph.py)."""
+        self.launches += n
 
 
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
-
-
-def captured_count() -> int:
-    """Number of launches recorded into CUDA graphs (not run then: a graph
-    launches them at each replay).  Never reset."""
-    return _captured
-
-
-def add_replayed(n: int) -> None:
-    """Count ``n`` launches made by the replay of a CUDA graph that
-    captured them (step_graph.py)."""
-    global _launches
-    _launches += n
+_counter = LaunchCounter()
+launch_count = _counter.launch_count
+reset_launch_count = _counter.reset_launch_count
+captured_count = _counter.captured_count
+add_replayed = _counter.add_replayed
 
 
 def _nvcc() -> str:
@@ -230,7 +246,6 @@ def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
     ``alloc_output`` (what ``two_cross_cuda`` does after its checks; timing
     loops call it to leave the host's share out).  Under a CUDA graph's
     capture the launch is recorded, not run, and counted as captured."""
-    global _launches, _captured
     PC, dtype, dev = qi.shape[0], p_verts.dtype, p_verts.device
     if PC == 0:
         return
@@ -247,10 +262,7 @@ def launch_into(buf, p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_if(lib, rc, "two_cross kernel")
-    if torch.cuda.is_current_stream_capturing():
-        _captured += 1
-    else:
-        _launches += 1
+    _counter.count()
 
 
 def two_cross_cuda(p_verts, p_n, q_verts, q_n, qi, qj, shift, perturb,

@@ -153,11 +153,13 @@ def eulerian_data(floes: FloeState, ocean, grid, dims, outputs=GRID_OUTPUTS) -> 
     """calc_eulerian_data! (output.jl:794-919): per coarse cell, area-ratio
     weighted averages of floe quantities over the floes covering the cell.
 
-    The ``[N, nx, ny]`` floe-by-cell clip and the weighted sums run on the
-    pool's device, in float64 whatever the pool's dtype (the JAX package's
-    cell bounds are float64 arrays, so under x64 its clip runs in float64
-    too); only the ``[nx, ny]`` results come to the host."""
-    from ..physics.coupling import _clip_area_to_rects
+    The ``[N, nx, ny]`` floe-by-cell clip (``coupling._cell_areas``: the
+    cell clip's kernel on the card, its plain version on the CPU) and the
+    weighted sums run on the pool's device, in float64 whatever the pool's
+    dtype (the JAX package's cell bounds are float64 arrays, so under x64
+    its clip runs in float64 too); only the ``[nx, ny]`` results come to
+    the host."""
+    from ..physics.coupling import _cell_areas
 
     ny, nx = dims
     xs = np.linspace(grid.x0, grid.xf, nx + 1)
@@ -165,15 +167,15 @@ def eulerian_data(floes: FloeState, ocean, grid, dims, outputs=GRID_OUTPUTS) -> 
     N = floes.capacity
     dev, f64 = floes.verts.device, torch.float64
 
-    def rect(edges, shape):
-        return torch.as_tensor(edges, dtype=f64, device=dev).reshape(shape).expand(N, nx, ny)
+    def bounds(edges):
+        return torch.as_tensor(edges, dtype=f64, device=dev).expand(N, len(edges))
 
-    # rect bounds per (floe, cell) - full cartesian product (coarse grid)
-    xmin, xmax = rect(xs[:-1], (1, nx, 1)), rect(xs[1:], (1, nx, 1))
-    ymin, ymax = rect(ys[:-1], (1, 1, ny)), rect(ys[1:], (1, 1, ny))
-    ok = floes.active[:, None, None].expand(N, nx, ny)
-    area = _clip_area_to_rects(floes.verts.to(f64), floes.nverts, xmin, xmax,
-                               ymin, ymax, ok)
+    # rect bounds by axis, every floe against every coarse cell of an
+    # active floe (the cells' rects and mask are separable)
+    area = _cell_areas(floes.verts.to(f64), floes.nverts,
+                       bounds(xs[:-1]), bounds(xs[1:]), bounds(ys[:-1]), bounds(ys[1:]),
+                       floes.active[:, None].expand(N, nx),
+                       torch.ones((N, ny), dtype=torch.bool, device=dev))
     tot = area.sum(dim=0)  # [nx, ny]
     w = torch.where(tot > 0, area / torch.where(tot > 0, tot, 1.0), 0.0)
 

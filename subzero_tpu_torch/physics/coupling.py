@@ -31,6 +31,7 @@ from ..core.fields import AtmosState, OceanState
 from ..core.floes import FloeState
 from ..core.grid import RegRectilinearGrid
 from ..settings import CouplingSettings, FloeSettings
+from . import cell_clip as _cell_clip
 
 
 def _bilinear(field, gx, gy, grid: RegRectilinearGrid, ew_periodic, ns_periodic):
@@ -215,13 +216,38 @@ def calc_one_way_coupling(
     )
 
 
-def _floe_cell_areas(floes, grid, domain, cell_cap, cx0, cy0, offs):
-    """Per-floe cell window + exact ice area per window cell: a cell_cap x
-    cell_cap window of line-centered cells around each floe's centroid,
-    with the floe clipped against every cell rect.  Returns (wx, wy, wxs,
-    wys, pair_ok, w_area): unshifted window indices, periodic-shifted or
-    clamped indices, validity, and ice area per cell."""
-    N = floes.centroid.shape[0]
+def _window_origin(floes, grid, cap):
+    """Each floe's cap x cap window of line-centered cells: its centroid's
+    cell (cx0, cy0) [N] and the window's offsets from it, ``offs`` [cap]."""
+    cx0 = torch.floor((floes.centroid[:, 0] - grid.x0) / grid.dx + 0.5).long()
+    cy0 = torch.floor((floes.centroid[:, 1] - grid.y0) / grid.dy + 0.5).long()
+    offs = torch.arange(cap, device=floes.verts.device) - cap // 2
+    return cx0, cy0, offs
+
+
+def window_inputs(floes, grid, domain, cap):
+    """``_cell_areas``' arguments (rings, rects and mask by axis) for the
+    pool's cap x cap windows, as the coupling hands them over."""
+    return _window(floes, grid, domain, *_window_origin(floes, grid, cap))[1]
+
+
+def _floe_cell_areas(floes, grid, domain, cx0, cy0, offs, window_cells=None):
+    """Per-floe cell window + exact ice area per window cell: a cap x cap
+    window of line-centered cells (``offs`` [cap] from the centroid's cell
+    ``cx0``, ``cy0``) around each floe, with the floe clipped against every
+    cell rect that its bounding circle reaches.  Returns (wx, wy, wxs, wys,
+    w_area): unshifted window indices and periodic-shifted or clamped
+    indices by axis [N, cap], and the ice area per cell [N, cap, cap] (0 in
+    a cell that is not clipped).
+    ``window_cells``: a 0-d int64 tensor that the cells clipped are added
+    to, or None."""
+    idx, args = _window(floes, grid, domain, cx0, cy0, offs)
+    return (*idx, _cell_areas(*args, window_cells))
+
+
+def _window(floes, grid, domain, cx0, cy0, offs):
+    """``_floe_cell_areas``' window: its indices (wx, wy, wxs, wys) and the
+    clip's arguments (rings, then the cell rects and mask by axis)."""
     dtype = floes.verts.dtype
     wx = cx0[:, None] + offs[None, :]      # [N, cap]
     wy = cy0[:, None] + offs[None, :]
@@ -238,7 +264,8 @@ def _floe_cell_areas(floes, grid, domain, cell_cap, cx0, cy0, offs):
         wys = torch.clamp(wy, 0, grid.Ny)
         wy_ok = (wy >= 0) & (wy <= grid.Ny)
 
-    # only cells within the floe's bounding circle need clipping
+    # only cells within the floe's bounding circle need clipping; the
+    # window's mask is separable, a cell (i, j) kept where okx[i] & oky[j]
     wxf = wx.to(dtype)
     wyf = wy.to(dtype)
     cell_x = grid.x0 + wxf * grid.dx       # unshifted cell center x
@@ -246,19 +273,14 @@ def _floe_cell_areas(floes, grid, domain, cell_cap, cx0, cy0, offs):
     rcell = 0.5 * math.sqrt(grid.dx**2 + grid.dy**2)
     near_x = torch.abs(cell_x - floes.centroid[:, 0:1]) <= floes.rmax[:, None] + rcell
     near_y = torch.abs(cell_y - floes.centroid[:, 1:2]) <= floes.rmax[:, None] + rcell
-    pair_ok = (
-        floes.active[:, None, None]
-        & (wx_ok & near_x)[:, :, None]
-        & (wy_ok & near_y)[:, None, :]
-    )  # [N, cap, cap]
+    okx = floes.active[:, None] & wx_ok & near_x    # [N, cap]
+    oky = wy_ok & near_y
 
-    # cell polygon (line-centered, trimmed at non-periodic boundaries:
+    # cell rects by axis (line-centered, trimmed at non-periodic boundaries:
     # center_cell_coords + check_cell_bounds, coupling.jl:931-1140)
-    ix_u = wxf[:, :, None].expand(N, cell_cap, cell_cap)
-    iy_u = wyf[:, None, :].expand(N, cell_cap, cell_cap)
-    xmin = (ix_u - 0.5) * grid.dx + grid.x0
+    xmin = (wxf - 0.5) * grid.dx + grid.x0
     xmax = xmin + grid.dx
-    ymin = (iy_u - 0.5) * grid.dy + grid.y0
+    ymin = (wyf - 0.5) * grid.dy + grid.y0
     ymax = ymin + grid.dy
     if not domain.ew_periodic:
         xmin = torch.clamp(xmin, grid.x0, grid.xf)
@@ -271,11 +293,39 @@ def _floe_cell_areas(floes, grid, domain, cell_cap, cx0, cy0, offs):
     # slots when every live ring fits (a lax.cond); which width serves is
     # known only on the device, and the padded slots add exact zeros, so
     # both widths give the same bits (tests/test_torch_step_graph.py)
-    area_in_cell = _clip_area_to_rects(
-        floes.verts, floes.nverts, xmin, xmax, ymin, ymax, pair_ok
+    return ((wx, wy, wxs, wys),
+            (floes.verts, floes.nverts, xmin, xmax, ymin, ymax, okx, oky))
+
+
+def _cell_areas(verts, nverts, xmin, xmax, ymin, ymax, okx, oky, window_cells=None):
+    """Area of each ring in each cell of its window [N, A, B], 0 in a cell
+    that the mask drops: the cell (i, j) of ring n is the rect [xmin[n, i],
+    xmax[n, i]] x [ymin[n, j], ymax[n, j]], kept where okx[n, i] and
+    oky[n, j] (rects and mask [N, A] by column, [N, B] by row).
+    ``window_cells``: a 0-d int64 tensor that the kept cells are added to,
+    or None.  On the card one launch of the cell clip's kernel
+    (``cell_clip.py``, B6), which equals the plain version on the card to
+    the bit; on the CPU the plain version (``_cell_areas_plain``:
+    ``_clip_area_to_rects`` over the window's [N, A, B] rects)."""
+    if verts.is_cuda:
+        return _cell_clip.cell_areas_cuda(verts, nverts, xmin, xmax, ymin, ymax, okx,
+                                          oky, window_cells)
+    return _cell_areas_plain(verts, nverts, xmin, xmax, ymin, ymax, okx, oky,
+                             window_cells)
+
+
+def _cell_areas_plain(verts, nverts, xmin, xmax, ymin, ymax, okx, oky,
+                      window_cells=None):
+    """``_cell_areas`` in plain PyTorch, on any device."""
+    N, A, B = okx.shape[0], okx.shape[1], oky.shape[1]
+    pair_ok = okx[:, :, None] & oky[:, None, :]
+    area = _clip_area_to_rects(
+        verts, nverts, xmin[:, :, None].expand(N, A, B), xmax[:, :, None].expand(N, A, B),
+        ymin[:, None, :].expand(N, A, B), ymax[:, None, :].expand(N, A, B), pair_ok,
     )
-    w_area = torch.where(pair_ok & (area_in_cell > 0), area_in_cell, 0.0)
-    return wx, wy, wxs, wys, pair_ok, w_area
+    if window_cells is not None:
+        window_cells += pair_ok.sum()
+    return torch.where(pair_ok & (area > 0), area, 0.0)
 
 
 def calc_eulerian_oa_coupling(
@@ -286,6 +336,7 @@ def calc_eulerian_oa_coupling(
     atmos: AtmosState,
     consts: Constants,
     cell_cap: int,
+    window_cells=None,
 ):
     """Eulerian (grid-cell) OA forcing (floe_OA_forcings!,
     eulerian_OA_code.jl:121-179): instead of sub-floe quadrature points,
@@ -296,16 +347,13 @@ def calc_eulerian_oa_coupling(
     ocean drag is relative with the turning-angle rotation, pressure-gradient
     and Coriolis terms use mass/area, torque arms run to the cell centers,
     and the floe heatflux factor is the mean over covered cells.  Returns
-    the floe pool with fx_oa/fy_oa/trq_oa/hflx_factor filled in."""
+    the floe pool with fx_oa/fy_oa/trq_oa/hflx_factor filled in.
+    ``window_cells``: see ``_floe_cell_areas``."""
     N = floes.capacity
     dtype = floes.verts.dtype
-    dev = floes.verts.device
-    cx0 = torch.floor((floes.centroid[:, 0] - grid.x0) / grid.dx + 0.5).long()
-    cy0 = torch.floor((floes.centroid[:, 1] - grid.y0) / grid.dy + 0.5).long()
-    half = cell_cap // 2
-    offs = torch.arange(cell_cap, device=dev) - half
-    wx, wy, wxs, wys, pair_ok, w_area = _floe_cell_areas(
-        floes, grid, domain, cell_cap, cx0, cy0, offs
+    cx0, cy0, offs = _window_origin(floes, grid, cell_cap)
+    wx, wy, wxs, wys, w_area = _floe_cell_areas(
+        floes, grid, domain, cx0, cy0, offs, window_cells
     )
     covered = w_area > 0                                   # [N, cap, cap]
 
@@ -386,6 +434,7 @@ def calc_two_way_coupling(
     dt: float,
     cell_cap: int,
     reduce_sums=None,
+    window_cells=None,
 ):
     """Ice/atmosphere effect on the ocean (coupling.jl:1617-1680).
 
@@ -393,6 +442,7 @@ def calc_two_way_coupling(
     decomposition, a callable that takes this rank's per-cell sums [C, 3]
     and returns their sum over every rank (parallel/decomp.py); it runs
     before the area-weighted division, which is not linear in the sums.
+    ``window_cells``: see ``_floe_cell_areas``.
 
     Returns (ocean, overflow): ``overflow`` fires when a valid sub-floe
     point falls outside its floe's cell_cap x cell_cap window, so that its
@@ -403,11 +453,9 @@ def calc_two_way_coupling(
     dev = one_way.pt_x.device
     dtypef = one_way.pt_x.dtype
 
-    cx0 = torch.floor((floes.centroid[:, 0] - grid.x0) / grid.dx + 0.5).long()
-    cy0 = torch.floor((floes.centroid[:, 1] - grid.y0) / grid.dy + 0.5).long()
+    cx0, cy0, offs = _window_origin(floes, grid, cell_cap)
     half = cell_cap // 2
     ar = torch.arange(cell_cap, device=dev)
-    offs = ar - half
 
     # per-(floe, window-cell) sums of -tau_ocn and point counts
     # (CellStresses' add_point!, coupling.jl:1329-1384): separable per-axis
@@ -434,8 +482,8 @@ def calc_two_way_coupling(
     ty_pair = sums[..., 1]
     np_pair = sums[..., 2]
     np_pair_safe = torch.where(np_pair > 0, np_pair, 1.0)
-    wx, wy, wxs, wys, pair_ok, w_area = _floe_cell_areas(
-        floes, grid, domain, cell_cap, cx0, cy0, offs
+    wx, wy, wxs, wys, w_area = _floe_cell_areas(
+        floes, grid, domain, cx0, cy0, offs, window_cells
     )
     cell_pay = torch.stack(
         [tx_pair / np_pair_safe * w_area, ty_pair / np_pair_safe * w_area, w_area],
@@ -495,6 +543,16 @@ def _clip_area_to_rects(verts, nverts, xmin, xmax, ymin, ymax, ok):
     polyline bent where x(t)/y(t) cross the four box lines; inserting the
     four sorted, [0, 1]-clamped crossing parameters as vertices is exact.
     """
+    N, A, B = xmin.shape
+    terms = _clip_edge_terms(verts, nverts, xmin, xmax, ymin, ymax)
+    area = (0.5 * torch.sum(terms, dim=1)).reshape(N, A, B)
+    return torch.where(ok, torch.abs(area), 0.0)
+
+
+def _clip_edge_terms(verts, nverts, xmin, xmax, ymin, ymax):
+    """``_clip_area_to_rects``' shoelace terms [N, V, a * b]: each edge's
+    clamped image's cross products against each rect, 0 on a padded edge;
+    twice the area is their sum over the edges."""
     N, V, _ = verts.shape
     A, B = xmin.shape[1], xmin.shape[2]
     C = A * B
@@ -548,8 +606,7 @@ def _clip_area_to_rects(verts, nverts, xmin, xmax, ymin, ymax, ok):
         cr = prev[0] * cur[1] - cur[0] * prev[1]
         acc = cr if acc is None else acc + cr
         prev = cur
-    area = (0.5 * torch.sum(acc * em[:, :, None], dim=1)).reshape(N, A, B)
-    return torch.where(ok, torch.abs(area), 0.0)
+    return acc * em[:, :, None]
 
 
 def timestep_coupling(
@@ -564,9 +621,10 @@ def timestep_coupling(
     dt: float,
     cell_cap: int = 16,
     reduce_sums=None,
+    window_cells=None,
 ):
     """timestep_coupling! (coupling.jl:1705-1738).  ``reduce_sums``: see
-    calc_two_way_coupling.
+    calc_two_way_coupling; ``window_cells``: see ``_floe_cell_areas``.
 
     Returns (floes, ocean, overflow); overflow fires when the interpolation
     window or the two-way cell window lost a point."""
@@ -575,7 +633,7 @@ def timestep_coupling(
         # points.  The two-way deposition needs points, so it stays a
         # point-path feature.
         floes = calc_eulerian_oa_coupling(
-            floes, grid, domain, ocean, atmos, consts, cell_cap
+            floes, grid, domain, ocean, atmos, consts, cell_cap, window_cells
         )
         overflow = torch.zeros((), dtype=torch.bool, device=floes.verts.device)
         return floes, ocean, overflow
@@ -590,7 +648,7 @@ def timestep_coupling(
     if coupling_settings.two_way_coupling_on:
         ocean, ovf2 = calc_two_way_coupling(
             ow, grid, domain, ocean, atmos, consts, floe_settings, dt, cell_cap,
-            reduce_sums,
+            reduce_sums, window_cells,
         )
         overflow = overflow | ovf2
     return ow.floes, ocean, overflow

@@ -32,8 +32,6 @@ TC_FLOATS = two_cross.OUT_FLOATS
 Q_COLS = 9  # columns of the Q pool's table (collisions._q_table, forces.cuh:QCol)
 
 _lib = None
-_launches = 0
-_captured = 0
 
 
 class ContactSides(NamedTuple):
@@ -62,26 +60,11 @@ class ForceLaw(NamedTuple):
     s_sides: ContactSides
 
 
-def launch_count() -> int:
-    """Number of kernel launches since the last reset (one a call)."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
-
-
-def captured_count() -> int:
-    """Number of launches recorded into CUDA graphs.  Never reset."""
-    return _captured
-
-
-def add_replayed(n: int) -> None:
-    """Count ``n`` launches made by the replay of a CUDA graph that
-    captured them (step_graph.py)."""
-    global _launches
-    _launches += n
+_counter = two_cross.LaunchCounter()
+launch_count = _counter.launch_count
+reset_launch_count = _counter.reset_launch_count
+captured_count = _counter.captured_count
+add_replayed = _counter.add_replayed
 
 
 # forces.cuh:Args, field by field: pointers, then the law's scalars, then ints
@@ -245,16 +228,12 @@ def prepare(consts, dt, cs, vals, floes, q_table, qi, qj, shift, valid, tc,
 def launch(args, dtype) -> None:
     """One launch of the kernel with ``prepare``'s arguments on the current
     stream, counted (under a CUDA graph's capture, counted as captured)."""
-    global _launches, _captured
     lib = _load()
     fn = lib.sz_forces_f64 if dtype == torch.float64 else lib.sz_forces_f32
     dev = torch.device("cuda", torch.cuda.current_device())
     rc = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     two_cross._raise_if(lib, rc, "force law kernel")
-    if torch.cuda.is_current_stream_capturing():
-        _captured += 1
-    else:
-        _launches += 1
+    _counter.count()
 
 
 def force_law_cuda(consts, dt, cs, vals, floes, q_table, qi, qj, shift, valid,

@@ -168,7 +168,8 @@ def build_step_bodies(sim: Simulation, mark=None) -> tuple[Callable, Callable]:
     the graphs it keeps are freed without the cycle collector.  ``mark``:
     the step's layer marks (``tracing.Marks``; a StepGraph passes its
     own), called inside ``timestep_collisions``, at the end of ``collide``
-    (mark 4) and after the coupling (mark 5); None marks nothing."""
+    (mark 4) and after the coupling (mark 5), whose cell clip adds the cells
+    it clipped to the marks' ``window_cells``; None marks nothing."""
     grid = sim.model.grid
     atmos = sim.model.atmos
     consts = sim.consts
@@ -206,6 +207,7 @@ def build_step_bodies(sim: Simulation, mark=None) -> tuple[Callable, Callable]:
             floes, ocean, cp_overflow = _coupling.timestep_coupling(
                 floes, grid, domain, ocean, atmos, consts, cps, fs, dt,
                 cell_cap,
+                window_cells=None if mark is None else mark.window_cells(),
             )
             overflow = overflow | cp_overflow
         if mark is not None:

@@ -26,8 +26,8 @@ pool:
 A program is warmed up once before its capture (run eagerly on a side
 stream, outputs dropped: cuBLAS handles, the kernels' libraries, the
 allocator), as ``torch.cuda.graphs`` asks.  The launches of the step's
-hand-written kernels (``KERNELS``: the narrow phase, the slow clip and the
-force law) are counted where they run: the warm-up's by the kernel's
+hand-written kernels (``KERNELS``: the narrow phase, the slow clip, the
+force law and the coupling's cell clip) are counted where they run: the warm-up's by the kernel's
 wrapper, a replay's by the graph (``add_replayed``, the launches the
 program captured; ``chip_smoke.py``'s ``graph`` phase holds that count
 against the kernels' runs on the card, by torch.profiler).
@@ -38,8 +38,8 @@ layers between, inside the capture.  Their buffer holds the step's flags
 and overflow count too, so ``marks.read``, the one host read of a call
 (``run_scan``) or of a step (``run``), brings every counter with it;
 ``stats`` gives what it last read (seconds by layer, steps marked, candidate
-pairs, slow rows and the binned broad phase's slot tests and fullest bins,
-cumulative; the counters' maxima since the call's
+pairs, slow rows, the binned broad phase's slot tests and fullest bins and
+the window cells the coupling clipped, cumulative; the counters' maxima since the call's
 ``marks.begin_call``) and the graph's own host spans.
 
 A Simulation keeps its StepGraph (``Simulation.step_graph``), so a later
@@ -66,10 +66,12 @@ from .core.fields import OceanState
 from .core.floes import FloeState
 from .geometry import regions as _regions
 from .geometry import two_cross as _two_cross
+from .physics import cell_clip as _cell_clip
 from .physics import forces as _forces
 
 # the step's hand-written kernels, whose wrappers count their launches
-KERNELS = {"two_cross": _two_cross, "regions": _regions, "forces": _forces}
+KERNELS = {"two_cross": _two_cross, "regions": _regions, "forces": _forces,
+           "cell_clip": _cell_clip}
 
 _warmup_launches = dict.fromkeys(KERNELS, 0)
 

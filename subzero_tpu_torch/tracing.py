@@ -33,10 +33,13 @@ of the step, each live floe against the occupied slots of its neighbour
 bins, and the fullest bin's floes, beside the bins' capacity M); mark 2
 reads the slow rows (``n_slow``): each adds to a sum and to the largest
 value since ``begin_call`` zeroed it.  The dense broad phase hands mark 1
-no bin counts, and those counters stay 0.  Everything sits in one small
-buffer on the pool's device, beside the step's flags (fuse marked,
-overflow) and its overflow count, so it reaches the host only in the reads
-that the run loops make anyway (``read``; ``stats`` gives what it read).
+no bin counts, and those counters stay 0.  One counter is added to by a
+kernel of its layer itself (``window_cells``): the coupling's cell clip
+adds the (floe, window cell) pairs it clipped (a sum only).  Everything
+sits in one small buffer on the pool's device, beside the step's flags
+(fuse marked, overflow) and its overflow count, so it reaches the host only
+in the reads that the run loops make anyway (``read``; ``stats`` gives what
+it read).
 The marks are always on: a step runs its 7 mark kernels whether or not a
 profiler records.
 
@@ -65,11 +68,12 @@ LAYERS = ("gap", "broad", "clip", "force", "sums", "couple", "integrate")
 MARK_STEP = len(LAYERS) - 1    # the mark that closes a step
 
 # int64 slots of the marks' buffer (csrc/marks.cu): nanoseconds by layer
-# (0-6), then these: each counter's sum, then each one's largest value
+# (0-6), then these: each counter's sum, then each one's largest value, the
+# overflow count, and the sums that a kernel of the step adds to itself
 SLOTS = {"last": 7, "steps": 8, "pairs": 9, "slow_rows": 10, "bin_tests": 11,
          "bin_fill": 12, "pairs_max": 13, "slow_rows_max": 14, "bin_tests_max": 15,
-         "bin_fill_max": 16, "n_over": 17}
-N_SLOTS = 18
+         "bin_fill_max": 16, "n_over": 17, "window_cells": 18}
+N_SLOTS = 19
 COUNTERS = ("pairs", "slow_rows", "bin_tests", "bin_fill")
 N_FLAGS = 2    # bool, after the int64 slots: fuse marked, overflow
 # what ``Marks.stats`` gives of one call, not counts to take differences of:
@@ -168,6 +172,12 @@ class Marks:
             self._count("bin_tests", bins[0])
             self._count("bin_fill", bins[1])
 
+    def window_cells(self):
+        """The slot that the coupling's cell clip adds the cells it clipped
+        to, a 0-d int64 view of the buffer (the plain path on the CPU adds
+        by a torch op), or None while marking is off."""
+        return self.acc[SLOTS["window_cells"]] if self.on else None
+
     def _count(self, name: str, value) -> None:
         """Add ``value`` to a counter and its maximum, by torch ops, so that
         the CPU's step reads nothing on the host either."""
@@ -216,13 +226,14 @@ class Marks:
         return self._host_flags.tolist(), int(self._host_slots[SLOTS["n_over"]])
 
     def stats(self) -> dict:
-        """The numbers of the last ``read``: seconds by layer, steps marked
-        and the ``COUNTERS`` (candidate pairs, slow rows, bin slot tests,
-        fullest bins), cumulative; and the ``GAUGES``."""
+        """The numbers of the last ``read``: seconds by layer, steps marked,
+        the ``COUNTERS`` (candidate pairs, slow rows, bin slot tests,
+        fullest bins) and the window cells clipped, cumulative; and the
+        ``GAUGES``."""
         s = self._host_slots.tolist()
         return {"layer_s": {name: 1e-9 * s[k] for k, name in enumerate(LAYERS)},
                 "steps_marked": s[SLOTS["steps"]],
-                **{name: s[SLOTS[name]] for name in COUNTERS},
+                **{name: s[SLOTS[name]] for name in (*COUNTERS, "window_cells")},
                 **{name + "_max": s[SLOTS[name + "_max"]] for name in COUNTERS},
                 "pair_rows": self.pair_rows, "slow_cap": self.slow_cap,
                 "bin_cap": self.bin_cap}

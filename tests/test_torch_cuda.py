@@ -7,7 +7,10 @@ on the card against the CPU, a 20-step ``run`` with a fracture pass, the
 JAX package's f32 conservation gate (5 000 steps of head_on and
 three_floes), the force law's kernel (B4) against the plain force law,
 in the step, its graph, ``pair_interactions`` and a restart, to the bit,
-and the binned broad phase's counters in the graph against the CPU's.
+the binned broad phase's counters in the graph against the CPU's, and the
+coupling's cell clip (B6) against its plain version, alone and in the
+coupling, to the bit, with its launches and its count of window cells in
+the graph.
 
 Every test is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports no JAX, so it runs on a machine that has none, without the JAX-side
@@ -56,7 +59,9 @@ from subzero_tpu_torch.geometry.clip import (
     two_cross_dispatch,
     two_cross_pairs,
 )
+from subzero_tpu_torch.physics import cell_clip
 from subzero_tpu_torch.physics import collisions as tcol
+from subzero_tpu_torch.physics import coupling as tcpl
 from subzero_tpu_torch.physics import forces
 from subzero_tpu_torch.physics.collisions import pair_overlaps
 from subzero_tpu_torch.settings import (
@@ -80,6 +85,8 @@ from torch_port_helpers import (
     assert_two_cross_close,
     build_pair_list,
     build_regions_shim,
+    card_sum,
+    coupling_cell_inputs,
     cuda_or_skip,
     free_port,
     lattice_pairs,
@@ -774,3 +781,140 @@ def test_cuda_force_law_in_the_graph_and_across_a_restart():
         for f, x, y in zip(getattr(g.model, name)._fields, getattr(rest.model, name),
                            getattr(g.model, name)):
             assert torch.equal(x, y), (name, f)
+
+
+# ---------------------------------------------------------------------------
+# the coupling's cell clip (B6)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_card_sum_is_torchs_sum_on_the_card(dtype):
+    """``card_sum``, the grouping that B6's ring sum follows and that the
+    CPU tests hold its shim to, is ``torch.sum(x, dim=1)`` on the card at
+    the shapes the coupling's plain clip sums ([N, V, cap^2]) and others."""
+    dev = cuda_or_skip()
+    gen = torch.Generator().manual_seed(3)
+    for shape in ((500, 32, 361), (2000, 32, 441), (64, 40, 441), (16, 128, 25),
+                  (3, 7, 9), (5, 32, 256)):
+        x = (1e3 * torch.randn(shape, generator=gen, dtype=dtype)).to(dev)
+        assert torch.equal(torch.sum(x, dim=1), card_sum(x)), shape
+
+
+# field: (floes, box side, binned broad phase, cell_cap as the benchmark's)
+B6_FIELDS = {"shear_flow_500": (500, 1e5, False, 19),
+             "field_16k": (16000, 5.66e5, True, 21)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", sorted(B6_FIELDS))
+def test_cuda_cell_clip_equals_plain_bitwise(field, monkeypatch):
+    """B6 against the plain version on the card (``_cell_areas_plain``) on
+    the field's coupling windows, f32 (and f64 at 500 floes): every area
+    equal to the bit, one launch a call, and its count of the cells it
+    clipped equal to the window mask's; the whole coupling with B6 and with
+    the plain version in its place: every floe and ocean field to the bit."""
+    from subzero_tpu_torch.bench import build_sim
+
+    dev = cuda_or_skip()
+    n, L, bins, cap = B6_FIELDS[field]
+    for dtype in (torch.float32, torch.float64) if n == 500 else (torch.float32,):
+        sim = dataclasses.replace(build_sim(n, L, 2e3, device=dev, dtype=dtype, bins=bins),
+                                  cell_cap=cap)
+        args = coupling_cell_inputs(sim)
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        before = cell_clip.launch_count()
+        got = tcpl._cell_areas(*args, count)
+        torch.cuda.synchronize()
+        assert cell_clip.launch_count() == before + 1
+        ref = tcpl._cell_areas_plain(*args)
+        assert torch.equal(_bits(got), _bits(ref)), (field, dtype)
+        ok = args[6][:, :, None] & args[7][:, None, :]
+        assert int(count) == int(ok.sum()) > 0
+        assert bool((got > 0).any())
+        del ref
+        m = sim.model
+
+        def couple():
+            return tcpl.timestep_coupling(m.floes, m.grid, m.domain, m.ocean, m.atmos,
+                                          sim.consts, sim.coupling_settings,
+                                          sim.floe_settings, sim.dt, sim.cell_cap)
+
+        f1, o1, ov1 = couple()
+        with monkeypatch.context() as mp:
+            mp.setattr(tcpl, "_cell_areas", tcpl._cell_areas_plain)
+            f2, o2, ov2 = couple()
+        for name, a, b in ((f"floes.{k}", x, y) for k, x, y in zip(f1._fields, f1, f2)):
+            assert torch.equal(_bits(a), _bits(b)), (field, dtype, name)
+        for k, x, y in zip(o1._fields, o1, o2):
+            assert torch.equal(_bits(x), _bits(y)), (field, dtype, k)
+        assert bool(ov1) == bool(ov2)
+
+
+@pytest.mark.cuda
+def test_cuda_cell_clip_in_the_graph():
+    """On the 500-floe shear field, f32: the coupled step's program holds
+    one B6 launch and the uncoupled one none, by the graphs' captured counts
+    and by the card's own runs of the kernel in a profiled replay of each;
+    the launch counter reads one a coupled step; the marks' ``window_cells``
+    of a coupled step equals the window mask's count on its state and an
+    uncoupled step adds none; and run_scan's replays equal the eager loop
+    to the bit over 20 steps with two coupled ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from subzero_tpu_torch.bench import build_sim
+
+    dev = cuda_or_skip()
+    sim = build_sim(500, 1e5, 2e3, device=dev)
+    n = 20
+    cell_clip.reset_launch_count()
+    g, _ = run_scan(dataclasses.replace(sim), n, start_tstep=1)
+    torch.cuda.synchronize()
+    st = g.run_stats["graph"]
+    assert cell_clip.launch_count() == 2 + st["warmup_launches"]["cell_clip"]
+    graph = g._graph
+    assert graph.captured_launches("cell_clip") == {("step", True): 1, ("step", False): 0}
+    for prog, want in ((("step", True), 1), (("step", False), 0)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):  # the lead takes the launches a trace may drop
+                graph.replay(prog)
+            torch.cuda.synchronize()
+        runs = [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA and "cell_clip_kernel" in e.name()]
+        assert len(runs) in (3 * want, 2 * want), (prog, len(runs))
+    e, _ = run_scan(dataclasses.replace(sim), n, start_tstep=1, _eager=True)
+    for name in ("floes", "ocean"):
+        for f, x, y in zip(getattr(g.model, name)._fields, getattr(g.model, name),
+                           getattr(e.model, name)):
+            assert torch.equal(x, y), (name, f)
+    okx, oky = coupling_cell_inputs(sim)[6:]
+    want = int((okx[:, :, None] & oky[:, None, :]).sum())
+    one, _ = run_scan(dataclasses.replace(sim), 1, start_tstep=10)
+    assert one.run_stats["graph"]["window_cells"] == want > 0
+    two, _ = run_scan(one, 1, start_tstep=11)
+    assert two.run_stats["graph"]["window_cells"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_grid_writer_takes_the_cell_clip(monkeypatch):
+    """The grid writer's [N, nx, ny] clip (``writers.eulerian_data``, f64
+    whatever the pool's dtype) is one B6 launch on the card, and every grid
+    output equals the one the plain clip gives on the card to the bit."""
+    from subzero_tpu_torch.bench import build_sim
+    from subzero_tpu_torch.io.writers import eulerian_data
+
+    dev = cuda_or_skip()
+    m = build_sim(500, 1e5, 2e3, device=dev).model
+    dims = (10, 12)
+    before = cell_clip.launch_count()
+    got = eulerian_data(m.floes, m.ocean, m.grid, dims)
+    assert cell_clip.launch_count() == before + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(tcpl, "_cell_areas", tcpl._cell_areas_plain)
+        ref = eulerian_data(m.floes, m.ocean, m.grid, dims)
+    assert cell_clip.launch_count() == before + 1
+    assert sorted(got) == sorted(ref) and float(got["area_grid"].sum()) > 0
+    for k in ref:
+        assert np.array_equal(got[k], ref[k], equal_nan=True), k

@@ -231,29 +231,13 @@ def test_intersect_regions_is_row_independent(dtype):
 
 
 def test_coupling_clip_on_16_slots_equals_the_full_width():
-    calls = []
     for dtype in (torch.float32, torch.float64):
         sim = build_sim(300, 1e5, 4e3, device="cpu", dtype=dtype)
         f, g, d = sim.model.floes, sim.model.grid, sim.model.domain
         assert f.verts.shape[1] == 32 and int(f.nverts.max()) <= 16
-        cap = sim.cell_cap
-        cx0 = torch.floor((f.centroid[:, 0] - g.x0) / g.dx + 0.5).long()
-        cy0 = torch.floor((f.centroid[:, 1] - g.y0) / g.dy + 0.5).long()
-        offs = torch.arange(cap) - cap // 2
-        orig = tcpl._clip_area_to_rects
-
-        def spy(verts, nv, *rects):
-            calls.append(rects)
-            return orig(verts, nv, *rects)
-
-        tcpl._clip_area_to_rects = spy
-        try:
-            tcpl._floe_cell_areas(f, g, d, cap, cx0, cy0, offs)
-        finally:
-            tcpl._clip_area_to_rects = orig
-        rects = calls[-1]
-        full = orig(f.verts, f.nverts, *rects)
-        assert torch.equal(full, orig(f.verts[:, :16], f.nverts, *rects)), dtype
+        verts, nverts, *rects = tcpl.window_inputs(f, g, d, sim.cell_cap)
+        full = tcpl._cell_areas_plain(verts, nverts, *rects)
+        assert torch.equal(full, tcpl._cell_areas_plain(verts[:, :16], nverts, *rects)), dtype
         assert bool((full > 0).any())
 
 

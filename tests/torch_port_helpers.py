@@ -293,6 +293,27 @@ def build_regions_shim(out_dir):
     return build_host_shim(out_dir)
 
 
+def card_sum(terms):
+    """``torch.sum(terms, dim=1)`` of [N, V, C] as CUDA groups it (a
+    reduction over a dimension that is not the innermost, V <= 128): edge k
+    into accumulator k % 4 of four, each from 0, then ((a0 + a1) + a2) +
+    a3."""
+    acc = [torch.zeros_like(terms[:, 0]) for _ in range(4)]
+    for k in range(terms.shape[1]):
+        acc[k % 4] = acc[k % 4] + terms[:, k]
+    return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+
+
+def coupling_cell_inputs(sim, domain=None):
+    """The arguments that the coupling hands ``coupling._cell_areas``
+    (rings, rects and mask by axis) on the state of ``sim``, with
+    ``domain``'s boundaries if given."""
+    from subzero_tpu_torch.physics import coupling as tcpl
+
+    m = sim.model
+    return list(tcpl.window_inputs(m.floes, m.grid, domain or m.domain, sim.cell_cap))
+
+
 def cuda_or_skip():
     """The first CUDA device, or skip: the kernel runs only on the card."""
     if not torch.cuda.is_available():
